@@ -1,0 +1,12 @@
+"""Spadas on PyTorch: the unified multi-granularity spatial index and its
+ExactHaus top-k Hausdorff search, on one NVIDIA H100.
+
+A port of the JAX package ``repro`` that keeps its module layout, so each
+function here has a counterpart of the same name there.  It imports
+``torch`` and numpy only.  Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``; the CPU path runs the plain PyTorch versions of
+the kernels and exists for tests.
+"""
+from repro_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

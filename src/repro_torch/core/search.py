@@ -1,0 +1,274 @@
+"""ExactHaus: exact top-k Hausdorff dataset search (paper Def. 8, Section VI).
+
+Counterpart of the ExactHaus part of ``repro.core.search``, single device.
+Branch-and-bound over the unified index, for a batch of B queries at once:
+
+  phases 0/1  one fused Eq. 4 bound pass over every (query, slot) pair and
+              tree level (``ops.bound_grid``), then level-synchronous
+              tightening of each query's candidate set under its own
+              threshold tau (the kth-smallest upper bound);
+  phase 2     exact Hausdorff on the candidates in ascending lower-bound
+              order, one chunk per query per step (``ops.directed_hausdorff_
+              grid`` for the whole (B, chunk) grid), tau re-derived from the
+              k smallest exact values after every chunk.
+
+JAX's ``lax.while_loop`` becomes a Python loop over device tensors with one
+host sync per chunk (the "any query has work" test).  ``topk_hausdorff_host``
+keeps the host-chunked loop, one (Q, D) pair per kernel call, as the
+oracle: the batched pipeline must equal it bitwise.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.index import DatasetIndex
+from repro_torch.core.repo_index import Repository
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import BIG
+
+# ExactHaus prune guard: a candidate survives while LB <= tau * TAU_GUARD,
+# which admits candidates within ~100 ulps of the threshold so that ulp-level
+# drift of the bounds can never flip a prune decision that matters; extra
+# exact evaluations are > H_k and never enter the top-k (superset rule).
+# One float32 multiply, identical on device and on the host.
+TAU_GUARD = np.float32(1.0 + 1e-5)
+_GUARD = float(TAU_GUARD)
+
+
+class SearchStats(NamedTuple):
+    nodes_evaluated: int
+    candidates_after_bounds: int
+    exact_evaluations: int
+    pruned_fraction: float
+
+
+def _frontier_bound_all_levels(q_idx: DatasetIndex, ds_index: DatasetIndex,
+                               max_level: int):
+    """Every (query, slot) pair's per-level (LB, UB) frontier scalars for
+    levels 0..max_level in one ``ops.bound_grid`` call.  q_idx is a (B, ...)
+    batch, ds_index the (S, ...) corpus.  Returns (LB, UB), each
+    (max_level + 1, B, S)."""
+    n_nodes = q_idx.level_slice(max_level).stop
+    levels = tuple((q_idx.level_slice(l).start, q_idx.level_slice(l).stop)
+                   for l in range(max_level + 1))
+    return ops.bound_grid(
+        q_idx.centers[:, :n_nodes].contiguous(),
+        q_idx.radii[:, :n_nodes].contiguous(),
+        (q_idx.counts[:, :n_nodes] > 0).contiguous(),
+        ds_index.centers[:, :n_nodes].contiguous(),
+        ds_index.radii[:, :n_nodes].contiguous(),
+        (ds_index.counts[:, :n_nodes] > 0).contiguous(),
+        levels=levels)
+
+
+def _kth_smallest(x: torch.Tensor, k: int) -> torch.Tensor:
+    """kth-smallest along the last axis (an element of x, bit for bit)."""
+    kk = min(k, x.shape[-1])
+    return torch.kthvalue(x, kk, dim=-1).values
+
+
+def _as_query_batch(q_idx: DatasetIndex):
+    """Promote a single-query index to a (1, ...) batch; returns
+    (batched index, was_single)."""
+    if q_idx.points.ndim == 2:
+        return DatasetIndex(*[x[None] for x in q_idx]), True
+    return q_idx, False
+
+
+def _hausdorff_bound_phases(repo: Repository, q_idx: DatasetIndex, k: int,
+                            refine_levels: int):
+    """Phases 0 + 1 of ExactHaus for a (B, ...) query batch (a single query
+    is promoted and squeezed on return).
+
+    Returns (LB (B, S), tau (B,), cand (B, S), nodes_evaluated (B,),
+    cand_after_bounds (B,)), all device tensors."""
+    q_idx, single = _as_query_batch(q_idx)
+    S = repo.n_slots
+    valid = repo.ds_valid
+
+    def count(mask):
+        return mask.sum(dim=-1).to(torch.int32)
+
+    max_level = min(q_idx.depth, repo.ds_index.depth, refine_levels)
+    LB_lvls, UB_lvls = _frontier_bound_all_levels(q_idx, repo.ds_index,
+                                                  max_level)
+
+    # phase 0: root-granularity Eq. 4 bounds for every slot
+    LB = torch.where(valid[None, :], LB_lvls[0], BIG)
+    UB = torch.where(valid[None, :], UB_lvls[0], BIG)
+    tau = _kth_smallest(UB, k)
+    cand = LB <= (tau * _GUARD)[:, None]
+    nodes_evaluated = torch.full((LB.shape[0],), S, dtype=torch.int32,
+                                 device=LB.device)
+
+    # phase 1: level-synchronous refinement (bounds only tighten)
+    for level in range(1, max_level + 1):
+        LB = torch.where(cand, torch.maximum(LB, LB_lvls[level]), LB)
+        UB = torch.where(cand, torch.minimum(UB, UB_lvls[level]), UB)
+        tau = _kth_smallest(torch.where(valid[None, :], UB, BIG), k)
+        cand = cand & (LB <= (tau * _GUARD)[:, None])
+        nodes_evaluated = nodes_evaluated + count(cand) * (1 << level)
+
+    out = (LB, tau, cand, nodes_evaluated, count(cand))
+    if single:
+        out = tuple(x[0] for x in out)
+    return out
+
+
+def _phase2_exact_loop(LB, cand, tau, q_idx: DatasetIndex,
+                       ds_index: DatasetIndex, k: int, chunk: int):
+    """Phase 2 of ExactHaus for a (B, ...) query batch: a loop over a shared
+    (query, candidate-chunk) work frontier.
+
+    Each step evaluates the next ascending-LB chunk of every query that
+    still has work in one ``ops.directed_hausdorff_grid`` call, then
+    re-derives each query's tau from its k smallest exact values.  A query
+    without work idles (its lanes are masked and its position holds), so
+    each query follows exactly the trajectory of its solo host loop.  The
+    loop stops when no query has work: one host sync per step.
+
+    Exactness: tau is always >= the true kth-smallest H_k, so a skipped
+    candidate has H >= LB > H_k and cannot enter the top-k, ties included.
+    Returns (exact_vals (B, S) with BIG where not evaluated, evaluated (B,)).
+    """
+    single = LB.ndim == 1
+    if single:
+        LB, cand, tau = LB[None], cand[None], tau[None]
+    q_idx, _ = _as_query_batch(q_idx)
+    B, S = LB.shape
+    dev = LB.device
+    lb_masked = torch.where(cand, LB, BIG)
+    # stable: LB ties keep slot order
+    lb_sorted, order = torch.sort(lb_masked, dim=-1, stable=True)
+    n_pad = -(-S // chunk) * chunk
+    # pad ids are 0 with BIG lanes: their amin writes change nothing
+    order_p = F.pad(order, (0, n_pad - S))
+    lb_p = F.pad(lb_sorted, (0, n_pad - S), value=BIG)
+
+    q_pts, q_val = q_idx.points, q_idx.valid
+    d_pts_all, d_val_all = ds_index.points, ds_index.valid
+    lanes = torch.arange(chunk, dtype=torch.int64, device=dev)
+
+    def has_work(pos, tau_c):
+        # candidates remain and the head is not pruned (guarded)
+        lb0 = torch.gather(lb_p, 1, pos.clamp(max=n_pad - 1)[:, None])[:, 0]
+        return (pos < S) & (lb0 < BIG / 2) & (lb0 <= tau_c * _GUARD)
+
+    pos = torch.zeros((B,), dtype=torch.int64, device=dev)
+    vals = torch.full((B, S), BIG, dtype=torch.float32, device=dev)
+    tau_c = tau.to(torch.float32)
+    evaluated = torch.zeros((B,), dtype=torch.int32, device=dev)
+    go = has_work(pos, tau_c)
+    while bool(go.any()):
+        idx = (pos[:, None] + lanes[None, :]).clamp(max=n_pad - 1)
+        ids = torch.gather(order_p, 1, idx)
+        lbs = torch.gather(lb_p, 1, idx)
+        live = (lbs < BIG / 2) & go[:, None]
+        hs = ops.directed_hausdorff_grid(q_pts, d_pts_all[ids], q_val,
+                                         d_val_all[ids])
+        vals.scatter_reduce_(1, ids, torch.where(live, hs, BIG), "amin",
+                             include_self=True)
+        evaluated += live.sum(dim=-1).to(torch.int32)
+        pos = torch.where(go, pos + chunk, pos)
+        # per-query threshold tightening from the k finite exacts
+        finite = vals < BIG / 2
+        kth = _kth_smallest(torch.where(finite, vals, BIG), k)
+        tau_c = torch.where(finite.sum(dim=-1) >= k, kth, tau_c)
+        go = has_work(pos, tau_c)
+    if single:
+        return vals[0], evaluated[0]
+    return vals, evaluated
+
+
+def _topk_smallest(vals: torch.Tensor, k: int):
+    """The k smallest along the last axis, ties toward the smallest index
+    (``lax.top_k(-vals)`` order): a stable ascending sort."""
+    s, i = torch.sort(vals, dim=-1, stable=True)
+    return s[..., :k], i[..., :k]
+
+
+def _topk_hausdorff_device_batched(repo: Repository, q_batch: DatasetIndex,
+                                   k: int, refine_levels: int, chunk: int):
+    """Batched ExactHaus on the device: B queries, phases 0/1 then the
+    shared phase-2 loop.  Per-query results are bitwise those of the host
+    loop ``topk_hausdorff_host``.
+
+    Returns (vals (B, k), ids (B, k), nodes (B,), cand_after (B,),
+    evaluated (B,))."""
+    LB, tau, cand, nodes_evaluated, cand_after = _hausdorff_bound_phases(
+        repo, q_batch, k, refine_levels)
+    exact_vals, evaluated = _phase2_exact_loop(
+        LB, cand, tau, q_batch, repo.ds_index, k, chunk)
+    vals = torch.where(repo.ds_valid[None, :], exact_vals, BIG)
+    top_vals, top_ids = _topk_smallest(vals, k)
+    return top_vals, top_ids, nodes_evaluated, cand_after, evaluated
+
+
+def topk_hausdorff(repo: Repository, q_idx: DatasetIndex, k: int, *,
+                   refine_levels: int = 3, chunk: int = 32):
+    """ExactHaus: the k datasets with the smallest directed Hausdorff
+    H(Q -> D), for one query index row.  Returns (vals (k,), ids (k,),
+    SearchStats)."""
+    q_batch, _ = _as_query_batch(q_idx)
+    vals, ids, nodes, cand_after, evaluated = _topk_hausdorff_device_batched(
+        repo, q_batch, k, refine_levels, chunk)
+    n_valid = max(int(repo.ds_valid.sum()), 1)
+    ev = int(evaluated[0])
+    stats = SearchStats(int(nodes[0]), int(cand_after[0]), ev,
+                        1.0 - ev / n_valid)
+    return vals[0], ids[0], stats
+
+
+def topk_hausdorff_host(repo: Repository, q_idx: DatasetIndex, k: int, *,
+                        refine_levels: int = 3, chunk: int = 32):
+    """ExactHaus with the host-chunked phase 2 (reference semantics): the
+    oracle the batched pipeline is held to.  One host sync per chunk and one
+    ``ops.directed_hausdorff`` call per candidate.
+    Returns (vals (k,), ids (k,), SearchStats)."""
+    S = repo.n_slots
+    valid = repo.ds_valid
+    LB, tau, cand, nodes_dev, _ = _hausdorff_bound_phases(
+        repo, q_idx, k, refine_levels)
+    nodes_evaluated = int(nodes_dev)
+    cand_after_bounds = int(cand.sum())
+
+    # phase 2: exact evaluation in ascending-LB order on the host; stable,
+    # so LB ties evaluate in slot order as on the device
+    lb_np = torch.where(cand, LB, BIG).cpu().numpy()
+    order = np.argsort(lb_np, kind="stable")
+    exact_vals = np.full((S,), np.float32(BIG))
+    tau_f = float(tau)
+    evaluated = 0
+
+    q_pts, q_val = q_idx.points, q_idx.valid
+    d_pts_all, d_val_all = repo.ds_index.points, repo.ds_index.valid
+
+    pos = 0
+    while pos < S:
+        ids = order[pos:pos + chunk]
+        ids = ids[lb_np[ids] < BIG / 2]
+        if ids.size == 0:
+            break
+        if lb_np[ids[0]] > np.float32(tau_f) * TAU_GUARD:
+            break  # everything remaining is pruned (guarded)
+        hs = torch.stack([
+            ops.directed_hausdorff(q_pts, d_pts_all[i], q_val, d_val_all[i])
+            for i in ids.tolist()])
+        exact_vals[ids] = hs.cpu().numpy()
+        evaluated += int(ids.size)
+        finite = exact_vals[exact_vals < BIG / 2]
+        if finite.size >= k:
+            tau_f = float(np.sort(finite)[k - 1])
+        pos += chunk
+
+    # final ranking: exact values where evaluated, everything else pruned
+    vals = torch.where(valid, torch.from_numpy(exact_vals).to(valid.device),
+                       BIG)
+    top_vals, top_ids = _topk_smallest(vals, k)
+    stats = SearchStats(nodes_evaluated, cand_after_bounds, evaluated,
+                        1.0 - evaluated / max(int(valid.sum()), 1))
+    return top_vals, top_ids, stats

@@ -1,0 +1,76 @@
+"""Public kernel ops: the CUDA kernel for a CUDA tensor, the plain PyTorch
+version for a CPU tensor.
+
+Counterpart of ``repro.kernels.ops`` for the three ops on the ExactHaus
+path.  There is no size-based routing and no autotune table: a CUDA tensor
+always launches the kernel (or raises), a CPU tensor always takes the plain
+version, and the two are bitwise equal.  ``LAUNCHES[name]`` counts kernel
+launches; the plain versions book none.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, bound_matrix, hausdorff, ref
+from repro_torch.kernels.ref import BIG
+
+LAUNCHES = _build.LAUNCHES
+reset_launches = _build.reset_launches
+
+#: D-axis slab width of the plain pair-grid evaluator
+TILE = 128
+
+
+def _route(name: str, t: torch.Tensor) -> bool:
+    """True to launch the kernel, False for the plain version."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel or plain path for {t.device}")
+
+
+def directed_hausdorff(q, d, q_valid, d_valid) -> torch.Tensor:
+    """H(Q -> D), masked; a 0-dim float32 tensor."""
+    if not _route("directed_hausdorff", q):
+        return ref.directed_hausdorff(q, d, q_valid, d_valid)
+    mins = hausdorff.min_sq_dists(q, d, d_valid)
+    nnd = ref.ieee_sqrt(torch.clamp_max(mins, BIG))
+    nnd = torch.where(q_valid, nnd, -BIG)
+    return torch.amax(nnd)
+
+
+def directed_hausdorff_grid_plain(q, ds, q_valid, ds_valid) -> torch.Tensor:
+    """Plain H(Q_b -> D_{b,c}) over a (B, C) grid: the D point axis is
+    streamed in ``TILE``-wide slabs with a running minimum, so the
+    intermediate is (B, C, nq, TILE) rather than (B, C, nq, nd)."""
+    B, C, nd, _ = ds.shape
+    nq = q.shape[1]
+    mins = torch.full((B, C, nq), BIG, dtype=torch.float32, device=q.device)
+    for t0 in range(0, nd, TILE):
+        dp = ds[:, :, t0:t0 + TILE]
+        dv = ds_valid[:, :, t0:t0 + TILE]
+        d2 = ref.unrolled_sq_dists(q[:, None, :, None, :],
+                                   dp[:, :, None, :, :])
+        d2 = torch.where(dv[:, :, None, :], d2, BIG)
+        mins = torch.minimum(mins, torch.amin(d2, dim=-1))
+    nnd = ref.ieee_sqrt(mins)
+    nnd = torch.where(q_valid[:, None, :], nnd, -BIG)
+    return torch.amax(nnd, dim=-1)
+
+
+def directed_hausdorff_grid(q, ds, q_valid, ds_valid) -> torch.Tensor:
+    """H(Q_b -> D_{b,c}) for q (B, nq, W) against per-query candidate
+    stacks ds (B, C, nd, W): (B, C).  The hot path of ExactHaus phase 2."""
+    if not _route("directed_hausdorff_grid", q):
+        return directed_hausdorff_grid_plain(q, ds, q_valid, ds_valid)
+    return hausdorff.hausdorff_grid(q, ds, q_valid, ds_valid)
+
+
+def bound_grid(oq, rq, q_ok, od, rd, d_ok, *, levels):
+    """Fused multi-level (B, S) frontier bounds: (LB, UB), each
+    (len(levels), B, S).  See ``ref.frontier_bound_levels``."""
+    levels = tuple(levels)
+    if not _route("bound_grid", oq):
+        return ref.frontier_bound_levels(oq, rq, q_ok, od, rd, d_ok, levels)
+    return bound_matrix.bound_grid(oq, rq, q_ok, od, rd, d_ok, levels=levels)

@@ -1,0 +1,103 @@
+"""Plain PyTorch versions of the kernels (counterpart of ``repro.kernels.ref``).
+
+Each function runs as separate eager PyTorch ops, so no multiply is ever
+contracted with an add into an FMA: the results are the uncontracted IEEE
+float32 values, bitwise equal to eager ``repro.kernels.ref`` and numpy, and
+to the CUDA kernels (built with ``-fmad=false``).  They materialise the full
+distance tensors the kernels avoid, so they are for tests, the CPU path and
+the on-card comparisons in ``chip_smoke.py``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+#: masked-distance sentinel; the float32 value of 3.4e38, held as a Python
+#: float that float32 represents exactly
+BIG = float(np.float32(3.4e38))
+
+
+def ieee_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root, as the kernels' ``sqrtf``.
+
+    PyTorch's vectorised CPU ``sqrt`` can be one ulp off (seen with
+    torch 2.13 on x86), so on the CPU the root is taken in float64 and
+    rounded once to float32, which is correctly rounded for every float32
+    input.  On the card ``torch.sqrt`` is already IEEE."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def unrolled_sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_c (a[..., c] - b[..., c])**2, the coordinate axis unrolled: the
+    first square, then each further square added in coordinate order.
+
+    ``a`` and ``b`` broadcast against each other up to the trailing
+    coordinate axis.  This is the one accumulation every bit-sensitive
+    distance in the port shares, kernels included."""
+    d2 = None
+    for c in range(a.shape[-1]):
+        diff = a[..., c] - b[..., c]
+        sq = diff * diff
+        d2 = sq if d2 is None else d2 + sq
+    return d2
+
+
+def masked_sq_dists(q: torch.Tensor, d: torch.Tensor,
+                    d_valid: torch.Tensor) -> torch.Tensor:
+    """(nq, nd) squared distances with invalid D columns masked to BIG."""
+    d2 = unrolled_sq_dists(q[:, None, :], d[None, :, :])
+    return torch.where(d_valid[None, :], d2, BIG)
+
+
+def min_sq_dists(q: torch.Tensor, d: torch.Tensor,
+                 d_valid: torch.Tensor) -> torch.Tensor:
+    """(nq,) per-row min squared distance to a valid D row (BIG if none):
+    the plain version of the ``min_sq_dists`` kernel."""
+    return torch.amin(masked_sq_dists(q, d, d_valid), dim=1)
+
+
+def directed_hausdorff(q: torch.Tensor, d: torch.Tensor,
+                       q_valid: torch.Tensor,
+                       d_valid: torch.Tensor) -> torch.Tensor:
+    """H(Q -> D) = max_{p in Q} min_{p' in D} ||p - p'|| with masks (0-dim)."""
+    d2 = masked_sq_dists(q, d, d_valid)
+    nnd = ieee_sqrt(torch.amin(d2, dim=1))
+    nnd = torch.where(q_valid, nnd, -BIG)
+    return torch.amax(nnd)
+
+
+def frontier_bound_levels(oq, rq, q_ok, od, rd, d_ok, levels):
+    """Fused multi-level (B, S) frontier bounds (paper Eq. 4 plus the
+    min/max frontier collapse), every level in one pass.
+
+    oq (B, N, W) / rq, q_ok (B, N): query-tree node centers, radii and
+    occupancy over the node range [0, N); od (S, N, W) / rd, d_ok (S, N):
+    the corpus trees.  ``levels`` is a tuple of (start, stop) node slices,
+    applied to both node axes.  Returns (LB, UB), each (L, B, S):
+
+        LB[l, b, s] = max_{i in q_ok} min_{j in d_ok} lb(i, j)
+
+    over nodes i, j in [start, stop), and likewise UB, with
+    lb = max(cd - rd, 0) and ub = sqrt(cd^2 + rd^2) + rq.  ``rd`` is
+    squared at its own (S, N) shape before the broadcast, as in the JAX
+    reference and the kernel.
+    """
+    cd2 = unrolled_sq_dists(oq[:, None, :, None, :], od[None, :, None, :, :])
+    cd = ieee_sqrt(cd2)                                   # (B, S, N, N)
+    rd2 = (rd * rd)[None, :, None, :]
+    lb = torch.clamp_min(cd - rd[None, :, None, :], 0.0)
+    ub = ieee_sqrt(cd2 + rd2) + rq[:, None, :, None]
+    dok = d_ok[None, :, None, :]
+    lb = torch.where(dok, lb, BIG)
+    ub = torch.where(dok, ub, BIG)
+    ok = q_ok[:, None, :]
+    LBs, UBs = [], []
+    for a, b in levels:
+        okl = ok[..., a:b]
+        row_lb = torch.amin(lb[:, :, a:b, a:b], dim=-1)
+        row_ub = torch.amin(ub[:, :, a:b, a:b], dim=-1)
+        LBs.append(torch.amax(torch.where(okl, row_lb, -BIG), dim=-1))
+        UBs.append(torch.amax(torch.where(okl, row_ub, -BIG), dim=-1))
+    return torch.stack(LBs), torch.stack(UBs)

@@ -27,6 +27,11 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where none is present")
+
+
 def run_py(code: str, devices: int = 8, timeout: int = 560):
     """Run a python snippet in a subprocess with N forced host devices.
 

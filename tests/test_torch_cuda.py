@@ -1,0 +1,107 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``; they skip where no CUDA device is present (decided inside
+the ``cuda_device`` fixture, never at import).  On a machine with a card:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
+
+Every comparison is bitwise: the kernels are built with ``-fmad=false`` and
+IEEE ``sqrtf``, and their arithmetic order is that of the plain versions.
+Shapes are small and ragged (not multiples of any tile or warp).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import bound_matrix, hausdorff, ops, ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def _pts(rng, shape, dev):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 5).to(dev)
+
+
+def _mask(rng, shape, dev, p=0.8):
+    m = rng.random(shape) < p
+    m[..., 0] = True
+    return torch.from_numpy(m).to(dev)
+
+
+@pytest.mark.parametrize("nq,nd,W", [(1, 1, 2), (37, 130, 2), (300, 257, 2),
+                                     (129, 700, 3), (65, 33, 5)])
+def test_min_sq_dists(cuda_device, nq, nd, W):
+    rng = np.random.default_rng(nq + nd + W)
+    q, d = _pts(rng, (nq, W), cuda_device), _pts(rng, (nd, W), cuda_device)
+    dv = _mask(rng, (nd,), cuda_device)
+    ops.reset_launches()
+    got = hausdorff.min_sq_dists(q, d, dv)
+    assert ops.LAUNCHES["min_sq_dists"] == 1
+    assert _bits_equal(got, ref.min_sq_dists(q, d, dv))
+    qv = _mask(rng, (nq,), cuda_device)
+    assert _bits_equal(ops.directed_hausdorff(q, d, qv, dv),
+                       ref.directed_hausdorff(q, d, qv, dv))
+
+
+def test_min_sq_dists_all_invalid(cuda_device):
+    rng = np.random.default_rng(1)
+    q, d = _pts(rng, (20, 2), cuda_device), _pts(rng, (300, 2), cuda_device)
+    dv = torch.zeros(300, dtype=torch.bool, device=cuda_device)
+    got = hausdorff.min_sq_dists(q, d, dv)
+    assert torch.all(got == ref.BIG)
+
+
+@pytest.mark.parametrize("B,C,nq,nd,W", [(1, 1, 1, 1, 2), (3, 4, 24, 100, 2),
+                                         (2, 5, 300, 513, 2),
+                                         (2, 3, 4100, 70, 2),
+                                         (2, 2, 50, 90, 3)])
+def test_hausdorff_grid(cuda_device, B, C, nq, nd, W):
+    rng = np.random.default_rng(B * C + nq + nd)
+    q = _pts(rng, (B, nq, W), cuda_device)
+    ds = _pts(rng, (B, C, nd, W), cuda_device)
+    qv = _mask(rng, (B, nq), cuda_device)
+    dv = _mask(rng, (B, C, nd), cuda_device, p=0.6)
+    dv[:, :, 257:] = False           # whole invalid tiles are skipped
+    ops.reset_launches()
+    got = hausdorff.hausdorff_grid(q, ds, qv, dv)
+    assert ops.LAUNCHES["hausdorff_grid"] == 1
+    assert _bits_equal(got, ops.directed_hausdorff_grid_plain(q, ds, qv, dv))
+
+
+@pytest.mark.parametrize("B,S,N", [(1, 1, 1), (3, 5, 7), (4, 130, 15),
+                                   (33, 257, 15), (2, 300, 31)])
+def test_bound_grid(cuda_device, B, S, N):
+    rng = np.random.default_rng(B + S + N)
+    levels = tuple(((1 << l) - 1, (1 << (l + 1)) - 1)
+                   for l in range(int(np.log2(N + 1))))
+    oq, od = _pts(rng, (B, N, 2), cuda_device), _pts(rng, (S, N, 2), cuda_device)
+    rq = torch.from_numpy(rng.uniform(0, 3, (B, N)).astype(np.float32)).to(cuda_device)
+    rd = torch.from_numpy(rng.uniform(0, 3, (S, N)).astype(np.float32)).to(cuda_device)
+    qok, dok = _mask(rng, (B, N), cuda_device), _mask(rng, (S, N), cuda_device)
+    ops.reset_launches()
+    got = bound_matrix.bound_grid(oq, rq, qok, od, rd, dok, levels=levels)
+    assert ops.LAUNCHES["bound_grid"] == 1
+    want = ref.frontier_bound_levels(oq, rq, qok, od, rd, dok, levels)
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+
+
+def test_kernel_refuses_bad_input(cuda_device):
+    q = torch.zeros((4, 2), device=cuda_device)
+    v = torch.ones(4, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        hausdorff.min_sq_dists(q.t().contiguous().t(), q, v)
+    with pytest.raises(ValueError, match="float32"):
+        hausdorff.min_sq_dists(q.double(), q, v)

@@ -1,0 +1,105 @@
+"""Rules the PyTorch port keeps.
+
+* Nothing under ``src/repro_torch/`` or in ``chip_smoke.py`` imports
+  ``jax`` or the JAX package ``repro`` (AST scan).
+* A CPU tensor takes the plain version and books no kernel launch; a
+  tensor on another device is refused.
+* Entry points called without ``device="cpu"`` raise when no CUDA device
+  is present: a missing card never silently means the CPU.
+* ``chip_smoke.py`` fails without a card and never prints a result.
+"""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (both packages load in one process)
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import bridge
+from repro_torch.core.build import build_query_index, build_repository
+from repro_torch.kernels import bound_matrix, hausdorff, ops
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_jax(path):
+    assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+
+
+def test_cpu_tensors_take_the_plain_path():
+    ops.reset_launches()
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.normal(size=(9, 2)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(13, 2)).astype(np.float32))
+    qv, dv = torch.ones(9, dtype=torch.bool), torch.ones(13, dtype=torch.bool)
+    ops.directed_hausdorff(q, d, qv, dv)
+    ops.directed_hausdorff_grid(q[None], d[None, None], qv[None],
+                                dv[None, None])
+    n = torch.ones((1, 3), dtype=torch.bool)
+    ops.bound_grid(q[None, :3], n.float(), n, d[None, :3], n.float(), n,
+                   levels=((0, 1), (1, 3)))
+    assert ops.LAUNCHES == {"bound_grid": 0, "hausdorff_grid": 0,
+                            "min_sq_dists": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    q = torch.zeros((4, 2))
+    v = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        hausdorff.min_sq_dists(q, q, v)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        hausdorff.hausdorff_grid(q[None], q[None, None], v[None],
+                                 v[None, None])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bound_matrix.bound_grid(q[None], v[None].float(), v[None], q[None],
+                                v[None].float(), v[None], levels=((0, 1),))
+    meta = torch.zeros((4, 2), device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain path"):
+        ops.directed_hausdorff(meta, meta, v, v)
+
+
+def test_entry_points_need_a_card_unless_told_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    pts = [np.ones((20, 2), np.float32), np.zeros((30, 2), np.float32)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_repository(pts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_query_index(pts[0])
+    repo, _ = build_repository(pts, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bridge.repository_to_torch(bridge.to_numpy(repo))
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=REPO)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+    # alone in a directory, without the repository beside it
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    r = subprocess.run([sys.executable, str(alone)], capture_output=True,
+                       text=True, timeout=300, cwd=tmp_path)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
