@@ -1,27 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ExactHaus path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's search paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 It takes no options: the sizes are fixed at T-Drive's scale, so every
-kernel line it prints is at the main path's shapes.
+kernel line it prints is at the main paths' shapes.
 
 Phases, each of which must pass (any failure raises and exits non-zero):
 
-  1. the card's name and power limit, and the build of the CUDA kernels
+  1. the card's name and power limit, and the build of the six CUDA kernels
      from ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
   2. the repository build on the card: 10,357 random-walk trajectories of
      100-2,800 points (~15 M points, T-Drive's scale), outlier removal on;
-  3. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes, bitwise, with CUDA-event times;
-  4. the main path: ``QueryEngine.search`` on 32 held-out trajectories,
-     ``Query(op="topk_hausdorff", k=10)``, one warm-up pass then timed
-     passes, with the launch counters of both path kernels read around one
-     pass, then one more pass under ``torch.profiler`` for the device time
-     of each kernel and the device's idle share;
+  3. the three ExactHaus kernels against their plain PyTorch versions on the
+     card, at the main path's shapes, bitwise, with CUDA-event times;
+  4. the ExactHaus path: ``QueryEngine.search`` on 32 held-out
+     trajectories, ``Query(op="topk_hausdorff", k=10)``, one warm-up pass
+     then timed passes, with the launch counters of both path kernels read
+     around one pass, then one more pass under ``torch.profiler`` for the
+     device time of each kernel and the device's idle share;
   5. the ExactHaus oracle ``topk_hausdorff_host`` (the third kernel) on 4 of
      those queries, bitwise against the engine, and a small repository
-     checked against a numpy brute force.
+     checked against a numpy brute force;
+  6. the dataset -> point path on the same repository: one mixed
+     ``search()`` batch of 32 queries each of RangeS, top-k IA, top-k GBO
+     and ApproHaus, 8 ``Pipeline(topk_hausdorff -> nnp)`` and 8
+     ``Pipeline(topk_gbo -> range_points)``; one warm-up pass, which keeps
+     the operands the path hands to ``set_intersect`` and
+     ``bound_matrices``, then timed passes with the launch counters read
+     around one pass;
+  7. the three kernels of the dataset and point ops (``set_intersect``,
+     ``nn_distance``, ``bound_matrices``) against their plain versions:
+     the first two on the very operands the path gave them (bucket padding
+     included), ``nn_distance`` on the first pair the next phase's NNP
+     oracle check gives it;
+  8. its gates: RangeS, IA and GBO against a numpy brute force over every
+     dataset, RangeP masks against a numpy brute force, ApproHaus bitwise
+     against the single-query op and within 2 eps_eff of the exact
+     Hausdorff distance, and every pipeline NNP row against the unpruned
+     ``point_search.nnp`` (the ``nn_distance`` kernel, whose launches are
+     read around that check), one pair also against numpy.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -34,6 +52,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -46,10 +65,18 @@ sys.path.insert(0, str(ROOT / "src"))
 # cores, and HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# 32-bit population counts: 16 per clock per SM on compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput), on 132
+# SMs at the 1.98 GHz boost clock
+PEAK_POPC = 16 * 132 * 1.98e9
 
 # the main path: T-Drive's 10,357 taxis, a burst of 32 held-out queries
 N_DATASETS = 10357
 N_QUERIES = 32
+# the dataset -> point path: pipelines of each kind, and the winners each
+N_PIPELINES = 8
+K = 10
+THETA = 5
 
 
 class SmokeFailure(RuntimeError):
@@ -103,15 +130,16 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def kernel_row(name, source, replaces, shapes, got, want, ms, plain_ms,
-               n_bytes, n_ops):
+               n_bytes, n_ops, *, op_rate=PEAK_FP32, op_kind="fp32",
+               also_equal=True):
     bound_bytes = n_bytes / PEAK_BYTES * 1e3
-    bound_ops = n_ops / PEAK_FP32 * 1e3
+    bound_ops = n_ops / op_rate * 1e3
     err = max_abs(got, want)
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "shapes": shapes,
         "launches": None,                  # filled from the main path's run
-        "bitwise": bits_equal(got, want),
+        "bitwise": bits_equal(got, want) and also_equal,
         # one number under both names: ``max_abs_err`` is the kernel-line
         # format's key, ``max_abs_diff`` the name PERF.md and the docs use
         "max_abs_err": err, "max_abs_diff": err,
@@ -119,8 +147,15 @@ def kernel_row(name, source, replaces, shapes, got, want, ms, plain_ms,
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         "library_ms": None,
-        "bytes": n_bytes, "fp32_ops": n_ops,
+        "bytes": n_bytes, "ops": n_ops, "op_kind": op_kind,
     }
+
+
+def log_row(row) -> None:
+    log(f"kernel {row['name']}: bitwise={row['bitwise']} "
+        f"max_abs_diff={row['max_abs_diff']} ms={row['ms']:.4f} "
+        f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.6f} "
+        f"({row['bound_by']})")
 
 
 def brute_topk(datasets, q, k):
@@ -153,6 +188,360 @@ def device_profile(run):
             per_name[e.name] = (per_name.get(e.name, 0.0)
                                 + e.time_range.elapsed_us() / 1e3)
     return per_name, sum(per_name.values()), wall * 1e3
+
+
+def np_sq_dists(q, d):
+    """numpy float32 squared distances, (nq, W) x (nd, W) -> (nq, nd),
+    the squares added in coordinate order (no FMA)."""
+    d2 = None
+    for c in range(q.shape[1]):
+        diff = q[:, None, c] - d[None, :, c]
+        sq = diff * diff
+        d2 = sq if d2 is None else d2 + sq
+    return d2
+
+
+def np_cells(pts, lo, hi, theta):
+    """numpy z-order cell ids of (..., 2) points on the grid [lo, hi]:
+    an independent copy of the repository's quantisation and Morton code."""
+    span = np.maximum(hi - lo, np.float32(1e-30))
+    nbins = (1 << theta) - 1
+    g = ((pts[..., :2] - lo) / span * np.float32(nbins + 1)).astype(np.int32)
+    g = np.clip(g, 0, nbins).astype(np.int64)
+
+    def part1by1(x):
+        x = x & 0x0000FFFF
+        x = (x | (x << 8)) & 0x00FF00FF
+        x = (x | (x << 4)) & 0x0F0F0F0F
+        x = (x | (x << 2)) & 0x33333333
+        return (x | (x << 1)) & 0x55555555
+
+    return part1by1(g[..., 0]) | (part1by1(g[..., 1]) << 1)
+
+
+def np_occupancy(pts, val, lo, hi, theta):
+    """(B, 4**theta) bool: the grid cells the valid points of each set
+    occupy."""
+    cells = np_cells(pts, lo, hi, theta)
+    occ = np.zeros((pts.shape[0], 1 << (2 * theta)), bool)
+    rows = np.broadcast_to(np.arange(pts.shape[0])[:, None], val.shape)
+    occ[rows[val], cells[val]] = True
+    return occ
+
+
+def np_topk_desc(scores, k):
+    """The k largest per row, ties toward the smaller index."""
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(scores, order, axis=1), order
+
+
+def choose_eps(repo, search):
+    """An ApproHaus eps whose dataset stopping level lies in 3..5: just
+    above the largest live node radius of a level, tried at 4, 3, 5.
+    Returns (eps, dataset level)."""
+    radii, counts = repo.ds_index.radii, repo.ds_index.counts
+    for level in (4, 3, 5):
+        sl = repo.ds_index.level_slice(level)
+        r_max = float(torch.where(counts[:, sl] > 0, radii[:, sl], 0.0).max())
+        eps = float(np.nextafter(np.float32(r_max), np.float32(np.inf)))
+        ld = search.approx_level(repo.ds_index, eps)
+        if 3 <= ld <= 5:
+            return eps, ld
+    raise SmokeFailure("no eps gives a dataset stopping level in 3..5")
+
+
+@contextmanager
+def keep_operands(targets):
+    """Within the block, each ``(module, name)`` function in ``targets``
+    keeps the arguments of every call in ``calls[name]``, then runs as
+    before (the kernel still launches and counts).  Yields ``calls``."""
+    calls = {name: [] for _, name in targets}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def keeping(fn, name):
+        def wrapper(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return wrapper
+
+    for mod, name, fn in saved:
+        setattr(mod, name, keeping(fn, name))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def path_operands(calls, name):
+    """The operands of the path's one call shape of ``name``: every call of
+    one pass must have had the same shapes, or a single row could not
+    stand for them."""
+    check(calls[name], f"the mixed batch never called {name}")
+    shapes = {tuple(tuple(a.shape) for a in args) for args in calls[name]}
+    check(len(shapes) == 1, f"{name} was called at several shapes: {shapes}")
+    return calls[name][0]
+
+
+def new_kernel_rows(repo, q_batch, res2, calls, ref, kernels):
+    """Phase 7: set_intersect, nn_distance and bound_matrices against their
+    plain versions on the dataset -> point path's operands."""
+    set_intersect, nn_distance, bound_matrix = kernels
+    rows = []
+    # GBO: the group's query signatures, padded to its bucket, against
+    # every slot signature
+    sa, sb = path_operands(calls, "intersect_counts")
+    got = set_intersect.intersect_counts(sa, sb)
+    want = ref.set_intersect_count(sa, sb)
+    torch.cuda.synchronize()
+    na, W = sa.shape
+    nb = sb.shape[0]
+    rows.append(kernel_row(
+        "set_intersect", "src/repro_torch/csrc/set_intersect.cu",
+        "src/repro/kernels/set_intersect.py:19",
+        {"na": na, "nb": nb, "W": W}, got, want,
+        event_ms(lambda: set_intersect.intersect_counts(sa, sb), 50),
+        event_ms(lambda: ref.set_intersect_count(sa, sb), 3, 1),
+        nbytes(sa, sb, got),
+        # the signature words hold 32 bits: one 32-bit popcount per word
+        # pair; the AND and the add issue beside it at 4x that rate
+        na * nb * W, op_rate=PEAK_POPC, op_kind="popc32"))
+
+    # NNP oracle: the first pair the gates check, query 0 against the
+    # first winner of its ExactHaus -> NNP pipeline
+    w = int(res2[4 * N_QUERIES].extras["ds_ids"][0])
+    check(w >= 0, "NNP pipeline 0: sentinel first winner")
+    qp, qv = q_batch.points[0], q_batch.valid[0]
+    dp, dv = repo.ds_index.points[w], repo.ds_index.valid[w]
+    got = nn_distance.nn_distance(qp, dp, qv, dv)
+    want = ref.nn_distance(qp, dp, qv, dv)
+    torch.cuda.synchronize()
+    nq, W = qp.shape
+    rows.append(kernel_row(
+        "nn_distance", "src/repro_torch/csrc/nn_distance.cu",
+        "src/repro/kernels/nn_distance.py:21",
+        {"nq": nq, "nd": dp.shape[0], "W": W}, got[0], want[0],
+        event_ms(lambda: nn_distance.nn_distance(qp, dp, qv, dv), 50),
+        event_ms(lambda: ref.nn_distance(qp, dp, qv, dv), 10),
+        nbytes(qp, dp, qv, dv, *got),
+        # valid (row, point) pairs x (W sub, W mul, W-1 add, 1 compare),
+        # and a root per valid row
+        int(qv.sum()) * int(dv.sum()) * (3 * W) + int(qv.sum()),
+        also_equal=torch.equal(got[1], want[1])))
+
+    # pruned NNP leaf bounds: the stage-2 group's (query, winner) leaf
+    # frontiers, padded to its bucket
+    oq, rq, od, rd = path_operands(calls, "bound_matrices")
+    got = bound_matrix.bound_matrices(oq, rq, od, rd)
+    want = ref.bound_matrix(oq, rq, od, rd)
+    torch.cuda.synchronize()
+    P, nlq, W = oq.shape
+    nld = od.shape[1]
+    rows.append(kernel_row(
+        "bound_matrices", "src/repro_torch/csrc/bound_matrices.cu",
+        "src/repro/kernels/bound_matrix.py:26",
+        {"P": P, "nq": nlq, "nd": nld, "W": W},
+        torch.stack(got), torch.stack(want),
+        event_ms(lambda: bound_matrix.bound_matrices(oq, rq, od, rd), 20),
+        event_ms(lambda: ref.bound_matrix(oq, rq, od, rd), 3, 1),
+        nbytes(oq, rq, od, rd, *got),
+        # per node pair: 3W-1 for cd^2, sqrt, sub, max, add, sqrt, add;
+        # rd*rd once per corpus node
+        P * nlq * nld * (3 * W + 5) + P * nld))
+    for r in rows:
+        log_row(r)
+        check(r["bitwise"], f"{r['name']}: kernel differs from its plain "
+              f"version (max abs diff {r['max_abs_diff']})")
+    return rows
+
+
+def dataset_point_path(repo, engine, q_sets, q_batch, q_sigs_np, eps,
+                       reps, Query, Pipeline, ops, wrappers):
+    """Phase 6: the mixed batch through ``search()``.  Returns (items,
+    results, summary, launches, lo, hi, calls): ``calls`` holds the
+    operands of the warm-up pass's calls of the ``wrappers``."""
+    lo = np.stack([q.min(0) for q in q_sets]).astype(np.float32)
+    hi = np.stack([q.max(0) for q in q_sets]).astype(np.float32)
+    row = lambda i: type(q_batch)(*[x[i] for x in q_batch])   # noqa: E731
+    items = (
+        [Query(op="range_search", r_lo=lo[i], r_hi=hi[i])
+         for i in range(N_QUERIES)]
+        + [Query(op="topk_ia", r_lo=lo[i], r_hi=hi[i], k=K)
+           for i in range(N_QUERIES)]
+        + [Query(op="topk_gbo", q_sig=q_sigs_np[i], k=K)
+           for i in range(N_QUERIES)]
+        + [Query(op="topk_hausdorff_approx", q=q_sets[i], k=K, eps=eps)
+           for i in range(N_QUERIES)]
+        + [Pipeline(Query(op="topk_hausdorff", q=q_sets[i], k=K,
+                          refine_levels=3, chunk=32),
+                    Query(op="nnp", q_index=row(i)))
+           for i in range(N_PIPELINES)]
+        + [Pipeline(Query(op="topk_gbo", q_sig=q_sigs_np[i], k=K),
+                    Query(op="range_points", r_lo=lo[i], r_hi=hi[i]))
+           for i in range(N_PIPELINES)])
+    with keep_operands(wrappers) as calls:                   # warm-up
+        res, warm_s = sync_time(lambda: engine.search(items))
+    torch.cuda.reset_peak_memory_stats()
+    secs0 = dict(engine.stats.op_seconds)
+    ops.reset_launches()
+    res, first_s = sync_time(lambda: engine.search(items))
+    launches = dict(ops.LAUNCHES)
+    times = [first_s]
+    for _ in range(reps - 1):
+        res2, t = sync_time(lambda: engine.search(items))
+        times.append(t)
+        for a, b in zip(res, res2):
+            for f in ("vals", "ids", "mask"):
+                x, y = getattr(a, f), getattr(b, f)
+                check((x is None and y is None) or (
+                    x.shape == y.shape
+                    and x.tobytes() == y.tobytes()), "repeat pass differs")
+    groups = {op: (engine.stats.op_seconds[op] - secs0.get(op, 0.0)) / reps
+              for op in engine.stats.op_seconds}
+    summary = {
+        "items": len(items), "eps": eps, "warmup_s": warm_s,
+        "batch_latency_s": float(np.mean(times)),
+        "batch_latency_all_s": times,
+        "group_latency_s": groups,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches_per_search": launches,
+    }
+    return items, res, summary, launches, lo, hi, calls
+
+
+def dataset_point_gates(repo, res, lo, hi, q_batch, eps, search,
+                        point_search, ops):
+    """Phase 8: the gates of the dataset -> point path.  Returns the
+    nn_distance launches of the NNP oracle check."""
+    n = N_DATASETS
+    pts = repo.ds_index.points[:n].cpu().numpy()
+    val = repo.ds_index.valid[:n].cpu().numpy()
+    lo_d = np.where(val[..., None], pts, np.float32(np.inf)).min(axis=1)
+    hi_d = np.where(val[..., None], pts, np.float32(-np.inf)).max(axis=1)
+    Q = N_QUERIES
+    r_range, r_ia = res[:Q], res[Q:2 * Q]
+    r_gbo, r_apx = res[2 * Q:3 * Q], res[3 * Q:4 * Q]
+    r_nnp = res[4 * Q:4 * Q + N_PIPELINES]
+    r_rp = res[4 * Q + N_PIPELINES:]
+
+    # RangeS: dataset MBR overlaps the query box
+    want = ((lo_d[None] <= hi[:, None]) & (lo[:, None] <= hi_d[None])).all(-1)
+    for i, r in enumerate(r_range):
+        check(np.array_equal(r.mask[:n], want[i]) and not r.mask[n:].any(),
+              f"range_search {i}: mask differs from the numpy brute force")
+    # IA: the product of the clamped overlap lengths, float32
+    ln = (np.minimum(hi_d[None], hi[:, None])
+          - np.maximum(lo_d[None], lo[:, None]))
+    ln = np.maximum(ln, np.float32(0))
+    bv, bi = np_topk_desc(ln[..., 0] * ln[..., 1], K)
+    for i, r in enumerate(r_ia):
+        check(np.array_equal(r.vals.view(np.uint32), bv[i].view(np.uint32))
+              and np.array_equal(r.ids, bi[i]),
+              f"topk_ia {i}: differs from the numpy brute force")
+    # GBO: shared grid cells, counted from the points themselves
+    g_lo = repo.space_lo.cpu().numpy()
+    g_hi = repo.space_hi.cpu().numpy()
+    occ_d = np_occupancy(pts, val, g_lo, g_hi, THETA).astype(np.float32)
+    occ_q = np_occupancy(q_batch.points.cpu().numpy(),
+                         q_batch.valid.cpu().numpy(), g_lo, g_hi,
+                         THETA).astype(np.float32)
+    counts = (occ_q @ occ_d.T).astype(np.int64)     # exact below 2**24
+    bv, bi = np_topk_desc(counts, K)
+    for i, r in enumerate(r_gbo):
+        check(np.array_equal(r.vals, bv[i]) and np.array_equal(r.ids, bi[i]),
+              f"topk_gbo {i}: differs from the numpy brute force")
+    for i, r in enumerate(r_rp):           # stage 1 of the GBO pipelines
+        s1 = r.extras["stage1"]
+        check(np.array_equal(s1.vals, bv[i]) and np.array_equal(s1.ids, bi[i]),
+              f"pipeline gbo {i}: stage 1 differs from the brute force")
+    log(f"gates: range_search, topk_ia, topk_gbo ({Q} queries each) equal "
+        f"to the numpy brute force over {n} datasets")
+
+    # RangeP: the winners' valid points inside the box
+    n_rows = 0
+    for i, r in enumerate(r_rp):
+        for j, w in enumerate(r.extras["ds_ids"]):
+            check(w >= 0, "range_points pipeline: sentinel winner")
+            inside = ((pts[w] >= lo[i]) & (pts[w] <= hi[i])).all(-1)
+            check(np.array_equal(r.mask[j], val[w] & inside),
+                  f"range_points pipeline {i}, winner {j}: mask differs "
+                  f"from the numpy brute force")
+            n_rows += 1
+    log(f"gates: {n_rows} range_points rows equal to the numpy brute force")
+
+    # ApproHaus: the single-query op, and Lemma 1 against exact distances
+    worst = 0.0
+    for i, r in enumerate(r_apx):
+        row = type(q_batch)(*[x[i] for x in q_batch])
+        v, ids, (lq, ld, eps_eff) = search.topk_hausdorff_approx(
+            repo, row, K, eps)
+        v, ids = v.cpu().numpy(), ids.cpu().numpy()
+        check(np.array_equal(v.view(np.uint32), r.vals.view(np.uint32))
+              and np.array_equal(ids, r.ids),
+              f"ApproHaus {i}: batched differs from the single-query op")
+        check(np.float32(eps_eff) == r.extras["eps_eff"],
+              f"ApproHaus {i}: eps_eff differs")
+        for vv, j in zip(v, ids):
+            h = float(ops.directed_hausdorff(
+                row.points, repo.ds_index.points[j], row.valid,
+                repo.ds_index.valid[j]))
+            err = abs(float(vv) - h)
+            worst = max(worst, err / (2 * eps_eff))
+            check(err <= 2 * eps_eff + 1e-4,
+                  f"ApproHaus {i}: |{vv} - H {h}| > 2 eps_eff {eps_eff}")
+    log(f"gates: ApproHaus {Q} queries bitwise equal to the single-query op; "
+        f"worst |approx - exact| / (2 eps_eff) = {worst:.4f}")
+
+    # NNP: every pipeline row against the unpruned oracle (nn_distance).
+    # Distances bitwise; indices equal, except where the pruned scan found
+    # another point at the same squared distance: duplicate points (the
+    # random walks pile up where they are clipped to the space's edge) can
+    # sit in a leaf that the per-point bound, rounded, prunes.  Both are
+    # nearest neighbours; such rows are counted.
+    ops.reset_launches()
+    n_pairs = n_ties = 0
+    for i, r in enumerate(r_nnp):
+        row = type(q_batch)(*[x[i] for x in q_batch])
+        qv = row.valid.cpu().numpy()
+        qp = row.points.cpu().numpy()
+        for j, w in enumerate(r.extras["ds_ids"]):
+            d, x = point_search.nnp(row, type(q_batch)(
+                *[t[int(w)] for t in repo.ds_index]))
+            d, x = d.cpu().numpy(), x.cpu().numpy()
+            check(np.array_equal(r.vals[j].view(np.uint32),
+                                 d.view(np.uint32)),
+                  f"pipeline nnp {i}, winner {j}: dists not bitwise equal "
+                  f"to nnp")
+            differ = qv & (r.ids[j] != x)
+            if differ.any():
+                a = np_sq_dists(qp[differ], pts[w][r.ids[j][differ]])
+                b = np_sq_dists(qp[differ], pts[w][x[differ]])
+                check(np.array_equal(np.diagonal(a), np.diagonal(b))
+                      and val[w][r.ids[j][differ]].all(),
+                      f"pipeline nnp {i}, winner {j}: ids differ from nnp "
+                      f"at points that are not tied")
+                n_ties += int(differ.sum())
+            n_pairs += 1
+    nn_launches = ops.LAUNCHES["nn_distance"]
+    check(nn_launches > 0, "nn_distance was not launched by the NNP oracle")
+    # one pair against numpy
+    row = type(q_batch)(*[x[0] for x in q_batch])
+    w = int(r_nnp[0].extras["ds_ids"][0])
+    qp, qv = row.points.cpu().numpy(), row.valid.cpu().numpy()
+    d2 = np.where(val[w][None], np_sq_dists(qp, pts[w]), np.float32(3.4e38))
+    bi = np.argmin(d2, axis=1)
+    bd = np.sqrt(np.min(d2, axis=1))
+    x = r_nnp[0].ids[0]
+    check(np.array_equal(r_nnp[0].vals[0][qv].view(np.uint32),
+                         bd[qv].view(np.uint32))
+          and np.array_equal(d2[np.arange(len(x)), x][qv],
+                             d2[np.arange(len(x)), bi][qv]),
+          "pipeline nnp 0: differs from the numpy brute force")
+    log(f"gates: {n_pairs} pipeline nnp rows bitwise equal to the unpruned "
+        f"nnp (nn_distance launches {nn_launches}); {n_ties} query points "
+        f"took another of several tied nearest points; one pair equal to "
+        f"numpy")
+    return nn_launches
 
 
 def main() -> int:
@@ -246,9 +635,7 @@ def main() -> int:
         B * S * (pairs * (3 * W + 5) + 4 * sum(b - a for a, b in levels))
         + S * n_nodes)
     rows.append(row)
-    log(f"kernel bound_grid: bitwise={row['bitwise']} "
-        f"max_abs_diff={row['max_abs_diff']} ms={row['ms']:.4f} "
-        f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f}")
+    log_row(row)
 
     # a real phase-2 chunk: the first 32 ascending-LB candidates per query
     LB, tau, cand, _, _ = search._hausdorff_bound_phases(repo, q_batch, k, 3)
@@ -276,9 +663,7 @@ def main() -> int:
         # min, sqrt, max per valid (query row, candidate)
         valid_pairs * (3 * W) + C * int(qv.sum()) * 3)
     rows.append(row)
-    log(f"kernel hausdorff_grid: bitwise={row['bitwise']} "
-        f"max_abs_diff={row['max_abs_diff']} ms={row['ms']:.4f} "
-        f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f}")
+    log_row(row)
 
     # one (Q, D) pair at (4096, 4096): query 0 against its first candidate
     q0, d0, dv0 = qp[0], ds[0, 0], dsv[0, 0]
@@ -294,9 +679,7 @@ def main() -> int:
         nbytes(q0, d0, dv0, got),
         q0.shape[0] * int(dv0.sum()) * (3 * q0.shape[1]))
     rows.append(row)
-    log(f"kernel min_sq_dists: bitwise={row['bitwise']} "
-        f"max_abs_diff={row['max_abs_diff']} ms={row['ms']:.4f} "
-        f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f}")
+    log_row(row)
     for r in rows:
         check(r["bitwise"], f"{r['name']}: kernel differs from its plain "
               f"version (max abs diff {r['max_abs_diff']})")
@@ -395,6 +778,60 @@ def main() -> int:
               and np.array_equal(bi, r.ids),
               "small repository: engine differs from the numpy brute force")
     log("small repository: 4 queries equal to the numpy brute force")
+
+    # ---- 6. the dataset -> point path -----------------------------------
+    from repro_torch.core import point_search, zorder
+    from repro_torch.engine import Pipeline
+    from repro_torch.kernels import nn_distance, set_intersect
+
+    q_sigs = zorder.signature(q_batch.points, q_batch.valid, repo.space_lo,
+                              repo.space_hi, THETA)
+    eps, ld = choose_eps(repo, search)
+    lq = [search.approx_level(type(q_batch)(*[x[i] for x in q_batch]), eps)
+          for i in range(N_QUERIES)]
+    log(f"ApproHaus eps {eps!r}: dataset stopping level {ld}, query levels "
+        f"{sorted(set(lq))} (counts {np.bincount(lq).tolist()})")
+    items, res2, summary, launches2, lo, hi, calls = dataset_point_path(
+        repo, engine, q_sets, q_batch,
+        q_sigs.cpu().numpy().astype(np.uint32), eps, reps, Query, Pipeline,
+        ops, [(set_intersect, "intersect_counts"),
+              (bound_matrix, "bound_matrices")])
+    log("dataset/point path: " + json.dumps(summary))
+    # one more pass, under the profiler: where the device time goes
+    per_name, busy_ms, wall_ms = device_profile(lambda: engine.search(items))
+    if not per_name:
+        log("dataset/point device profile: not measured (the profiler saw "
+            "no device work)")
+    else:
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+        log("dataset/point device profile: " + json.dumps({
+            "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "kernel_ms": {n: sum(t for e, t in per_name.items()
+                                 if f"{n}_kernel" in e)
+                          for n in _build.KERNELS},
+            "top_device_ms": [(e[:100], t) for e, t in top]}))
+    for r in res2:
+        for f in ("vals", "mask"):
+            x = getattr(r, f)
+            if x is not None and x.dtype.kind == "f":
+                check(np.isfinite(x).all(), f"{r.op}: non-finite {f}")
+        if r.ids is not None and r.op != "pipeline":
+            check(r.ids.shape == (K,) and (r.ids >= 0).all()
+                  and (r.ids < N_DATASETS).all(), f"{r.op}: ids")
+    for name in ("set_intersect", "bound_matrices"):
+        check(launches2[name] > 0, f"{name} was not launched by search()")
+
+    # ---- 7. the dataset / point kernels vs plain versions ---------------
+    rows += new_kernel_rows(repo, q_batch, res2, calls, ref,
+                            (set_intersect, nn_distance, bound_matrix))
+    del calls
+
+    # ---- 8. the gates -----------------------------------------------------
+    launches["set_intersect"] = launches2["set_intersect"]
+    launches["bound_matrices"] = launches2["bound_matrices"]
+    launches["nn_distance"] = dataset_point_gates(
+        repo, res2, lo, hi, q_batch, eps, search, point_search, ops)
 
     for r in rows:
         r["launches"] = launches[r["name"]]

@@ -1,5 +1,6 @@
 """Spadas on PyTorch: the unified multi-granularity spatial index and its
-ExactHaus top-k Hausdorff search, on one NVIDIA H100.
+dataset and point searches (RangeS, top-k IA, GBO, ApproHaus and ExactHaus;
+RangeP, NNP; dataset->point pipelines), on one NVIDIA H100.
 
 A port of the JAX package ``repro`` that keeps its module layout, so each
 function here has a counterpart of the same name there.  It imports

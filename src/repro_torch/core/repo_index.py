@@ -9,6 +9,7 @@ slots; ``order`` maps tree slots back to dataset slots.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -27,6 +28,14 @@ class RepoIndex(NamedTuple):
     box_hi: torch.Tensor    # (n_nodes, d)
     sigs: torch.Tensor      # (n_nodes, W) int64 words holding uint32 values
     counts: torch.Tensor    # (n_nodes,) int32 datasets under each node
+
+    @property
+    def depth(self) -> int:
+        return int(math.log2(self.centers.shape[-2] + 1)) - 1
+
+    def level_slice(self, level: int) -> slice:
+        start = (1 << level) - 1
+        return slice(start, start + (1 << level))
 
 
 def _or_reduce(x: torch.Tensor) -> torch.Tensor:
@@ -116,6 +125,13 @@ class Repository(NamedTuple):
     @property
     def device(self) -> torch.device:
         return self.ds_valid.device
+
+    def roots(self):
+        """Per-dataset root stats in slot order: (centers, radii, box_lo,
+        box_hi)."""
+        idx = self.ds_index
+        return (idx.centers[:, 0, :], idx.radii[:, 0], idx.box_lo[:, 0, :],
+                idx.box_hi[:, 0, :])
 
     def nbytes(self) -> int:
         """Bytes of every tensor the repository holds."""

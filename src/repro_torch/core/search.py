@@ -1,21 +1,31 @@
-"""ExactHaus: exact top-k Hausdorff dataset search (paper Def. 8, Section VI).
+"""Search layer (paper Section VI): the dataset-granularity operations.
 
-Counterpart of the ExactHaus part of ``repro.core.search``, single device.
-Branch-and-bound over the unified index, for a batch of B queries at once:
+Counterpart of ``repro.core.search``, single device:
 
-  phases 0/1  one fused Eq. 4 bound pass over every (query, slot) pair and
-              tree level (``ops.bound_grid``), then level-synchronous
-              tightening of each query's candidate set under its own
-              threshold tau (the kth-smallest upper bound);
-  phase 2     exact Hausdorff on the candidates in ascending lower-bound
-              order, one chunk per query per step (``ops.directed_hausdorff_
-              grid`` for the whole (B, chunk) grid), tau re-derived from the
-              k smallest exact values after every chunk.
+  * RangeS          (Def. 9)  level-synchronous traversal of the upper tree;
+  * top-k IA        (Def. 6)  one dense box-algebra pass plus a top-k;
+  * top-k GBO       (Def. 7)  one popcount(AND) matrix
+                              (``ops.set_intersect_counts``) plus a top-k;
+  * ApproHaus       (Lemma 1) center-distance frontier scores at the first
+                              level whose node radii are all below eps;
+  * ExactHaus       (Def. 8)  branch-and-bound over the unified index, for
+                              a batch of B queries at once:
+
+      phases 0/1  one fused Eq. 4 bound pass over every (query, slot) pair
+                  and tree level (``ops.bound_grid``), then level-synchronous
+                  tightening of each query's candidate set under its own
+                  threshold tau (the kth-smallest upper bound);
+      phase 2     exact Hausdorff on the candidates in ascending lower-bound
+                  order, one chunk per query per step
+                  (``ops.directed_hausdorff_grid`` for the whole (B, chunk)
+                  grid), tau re-derived from the k smallest exact values
+                  after every chunk.
 
 JAX's ``lax.while_loop`` becomes a Python loop over device tensors with one
 host sync per chunk (the "any query has work" test).  ``topk_hausdorff_host``
 keeps the host-chunked loop, one (Q, D) pair per kernel call, as the
-oracle: the batched pipeline must equal it bitwise.
+oracle: the batched pipeline must equal it bitwise.  ``lax.top_k`` (largest
+first, ties toward the smaller index) is a stable sort here.
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import geometry
 from repro_torch.core.index import DatasetIndex
 from repro_torch.core.repo_index import Repository
 from repro_torch.kernels import ops
@@ -44,6 +55,100 @@ class SearchStats(NamedTuple):
     candidates_after_bounds: int
     exact_evaluations: int
     pruned_fraction: float
+
+
+def _topk_largest(vals: torch.Tensor, k: int):
+    """The k largest along the last axis, ties toward the smallest index
+    (``lax.top_k`` order): a stable descending sort."""
+    s, i = torch.sort(vals, dim=-1, descending=True, stable=True)
+    return s[..., :k], i[..., :k]
+
+
+def _topk_smallest(vals: torch.Tensor, k: int):
+    """The k smallest along the last axis, ties toward the smallest index
+    (``lax.top_k(-vals)`` order): a stable ascending sort."""
+    s, i = torch.sort(vals, dim=-1, stable=True)
+    return s[..., :k], i[..., :k]
+
+
+# ---------------------------------------------------------------------------
+# RangeS (Def. 9)
+# ---------------------------------------------------------------------------
+
+
+def range_search(repo: Repository, r_lo, r_hi):
+    """All datasets whose MBR overlaps [r_lo, r_hi] (one (d,) box).
+    Returns (mask over dataset slots, SearchStats)."""
+    mask, live_nodes, nodes_evaluated = _range_search_core(
+        repo, r_lo[None], r_hi[None])
+    live = int(live_nodes[0])
+    stats = SearchStats(nodes_evaluated, int(mask.sum()), 0,
+                        1.0 - live / max(nodes_evaluated, 1))
+    return mask[0], stats
+
+
+def _range_search_core(repo: Repository, r_lo, r_hi):
+    """RangeS for B query boxes r_lo, r_hi (B, d): (masks (B, B_pad),
+    live_nodes (B,), total_nodes).
+
+    Level-synchronous traversal of the upper tree; pruned subtrees stay
+    masked.  ``total_nodes`` is a Python int (tree lanes touched);
+    ``live_nodes`` counts the lanes still active at each level, the nodes a
+    pointer-chasing traversal would visit, on the device."""
+    up = repo.repo
+    depth = up.depth
+    lo_q, hi_q = r_lo[:, None, :], r_hi[:, None, :]
+    B = r_lo.shape[0]
+    active = torch.ones((B, 1), dtype=torch.bool, device=r_lo.device)
+    nodes_evaluated = 0
+    live_nodes = torch.zeros((B,), dtype=torch.int32, device=r_lo.device)
+    for level in range(depth + 1):
+        sl = up.level_slice(level)
+        hit = (geometry.box_overlaps(up.box_lo[sl], up.box_hi[sl], lo_q, hi_q)
+               & (up.counts[sl] > 0))
+        active = active & hit
+        nodes_evaluated += active.shape[1]
+        live_nodes = live_nodes + active.sum(dim=1).to(torch.int32)
+        if level < depth:
+            active = active.repeat_interleave(2, dim=1)
+    # leaf segments -> dataset slots (tree order), then each dataset's MBR
+    f_up = up.ds_valid.shape[0] // (1 << depth)
+    ds_active_tree = active.repeat_interleave(f_up, dim=1)
+    _, _, lo_r, hi_r = repo.roots()
+    hit_ds = geometry.box_overlaps(lo_r[up.order], hi_r[up.order], lo_q, hi_q)
+    mask_tree = ds_active_tree & hit_ds & up.ds_valid
+    mask = torch.zeros_like(mask_tree)
+    mask[:, up.order] = mask_tree
+    return mask, live_nodes, nodes_evaluated
+
+
+# ---------------------------------------------------------------------------
+# top-k IA (Def. 6) and top-k GBO (Def. 7)
+# ---------------------------------------------------------------------------
+
+
+def topk_ia(repo: Repository, q_lo, q_hi, k: int):
+    """Top-k datasets by intersecting area with Q's MBR.  Padded slots
+    score -1 and surface, past the valid count, with id -1."""
+    _, _, lo, hi = repo.roots()
+    ia = geometry.intersect_area(lo, hi, q_lo, q_hi)
+    ia = torch.where(repo.ds_valid, ia, -1.0)
+    vals, ids = _topk_largest(ia, k)
+    return vals, torch.where(vals < 0, -1, ids)
+
+
+def topk_gbo(repo: Repository, q_sig, k: int):
+    """Top-k datasets by z-order signature overlap (q_sig: (W,) int64
+    words).  Padded slots score -1 and surface with id -1."""
+    counts = ops.set_intersect_counts(q_sig[None, :], repo.ds_sigs)[0]
+    counts = torch.where(repo.ds_valid, counts, -1)
+    vals, ids = _topk_largest(counts, k)
+    return vals, torch.where(vals < 0, -1, ids)
+
+
+# ---------------------------------------------------------------------------
+# ExactHaus
+# ---------------------------------------------------------------------------
 
 
 def _frontier_bound_all_levels(q_idx: DatasetIndex, ds_index: DatasetIndex,
@@ -184,13 +289,6 @@ def _phase2_exact_loop(LB, cand, tau, q_idx: DatasetIndex,
     return vals, evaluated
 
 
-def _topk_smallest(vals: torch.Tensor, k: int):
-    """The k smallest along the last axis, ties toward the smallest index
-    (``lax.top_k(-vals)`` order): a stable ascending sort."""
-    s, i = torch.sort(vals, dim=-1, stable=True)
-    return s[..., :k], i[..., :k]
-
-
 def _topk_hausdorff_device_batched(repo: Repository, q_batch: DatasetIndex,
                                    k: int, refine_levels: int, chunk: int):
     """Batched ExactHaus on the device: B queries, phases 0/1 then the
@@ -272,3 +370,81 @@ def topk_hausdorff_host(repo: Repository, q_idx: DatasetIndex, k: int, *,
     stats = SearchStats(nodes_evaluated, cand_after_bounds, evaluated,
                         1.0 - evaluated / max(int(valid.sum()), 1))
     return top_vals, top_ids, stats
+
+
+# ---------------------------------------------------------------------------
+# ApproHaus (Lemma 1)
+# ---------------------------------------------------------------------------
+
+#: elements of the largest (queries, slots, q nodes, d nodes) distance block
+#: the frontier scorer materialises at once
+SCORE_BLOCK = 1 << 26
+
+
+def _level_arrays(idx: DatasetIndex, level: int):
+    sl = idx.level_slice(level)
+    return idx.centers[..., sl, :], idx.radii[..., sl], idx.counts[..., sl]
+
+
+def _levels_ok(radii, counts, depth: int, eps) -> torch.Tensor:
+    """(..., depth + 1) bool: does level l meet Lemma 1's stopping rule
+    (every live node radius < eps)?  Reduces over the node axis only."""
+    oks = []
+    for level in range(depth + 1):
+        sl = slice((1 << level) - 1, (1 << (level + 1)) - 1)
+        r = torch.where(counts[..., sl] > 0, radii[..., sl], 0.0)
+        oks.append(torch.all(r < eps, dim=-1))
+    return torch.stack(oks, dim=-1)
+
+
+def _level_for_eps(oks: torch.Tensor, depth: int) -> torch.Tensor:
+    """The first level that meets the stopping rule, else the leaf level,
+    on the device: (...) int64 from the (..., depth + 1) ``_levels_ok``."""
+    first = torch.argmax(oks.to(torch.uint8), dim=-1)
+    return torch.where(oks.any(dim=-1), first, depth)
+
+
+def approx_level(idx: DatasetIndex, eps: float) -> int:
+    """Smallest level where every live node radius < eps, over every tree
+    of ``idx`` (the leaf level if none): one host read."""
+    oks = _levels_ok(idx.radii, idx.counts, idx.depth, eps)
+    oks = oks.reshape(-1, idx.depth + 1).all(dim=0)
+    return int(_level_for_eps(oks, idx.depth))
+
+
+def frontier_scores(oq, q_ok, od, d_ok) -> torch.Tensor:
+    """ApproHaus scores max_{i in q_ok} min_{j in d_ok} |oq_i - od_j| for B
+    query frontiers oq (B, nq, W) / q_ok (B, nq) against S dataset
+    frontiers od (S, nd, W) / d_ok (S, nd): (B, S) float32.
+
+    Slots go in blocks, so that no distance block exceeds ``SCORE_BLOCK``
+    elements; min and max are exact, so the blocking changes no bit."""
+    B, nq = q_ok.shape
+    S, nd = d_ok.shape
+    step = max(1, SCORE_BLOCK // max(B * nq * nd, 1))
+    out = []
+    for s0 in range(0, S, step):
+        cdm = geometry.pairwise_dist_exact(oq[:, None], od[None, s0:s0 + step])
+        cdm = torch.where(d_ok[None, s0:s0 + step, None, :], cdm, BIG)
+        row = torch.amin(cdm, dim=-1)
+        out.append(torch.amax(torch.where(q_ok[:, None, :], row, -BIG),
+                              dim=-1))
+    return torch.cat(out, dim=1)
+
+
+def topk_hausdorff_approx(repo: Repository, q_idx: DatasetIndex, k: int,
+                          eps: float):
+    """ApproHaus (Lemma 1): top-k with error <= 2 eps, by center distances
+    at the first level of both trees where every node radius < eps.
+    Returns (vals (k,), ids (k,), (lq, ld, eps_eff)); eps_eff is the
+    guarantee actually met when a tree bottoms out first."""
+    lq = approx_level(q_idx, eps)
+    ld = approx_level(repo.ds_index, eps)
+    oq, rq, cq = _level_arrays(q_idx, lq)
+    od, rd, cd = _level_arrays(repo.ds_index, ld)
+    vals = frontier_scores(oq[None], (cq > 0)[None], od, cd > 0)[0]
+    vals = torch.where(repo.ds_valid, vals, BIG)
+    top_vals, top_ids = _topk_smallest(vals, k)
+    r_q = float(torch.amax(torch.where(cq > 0, rq, 0.0)))
+    r_d = float(torch.amax(torch.where(cd > 0, rd, 0.0)))
+    return top_vals, top_ids, (lq, ld, max(eps, r_q, r_d))

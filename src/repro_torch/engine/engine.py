@@ -8,20 +8,20 @@ with ``device="cpu"``) and answers declarative batches through
   * **shape bucketing** — a dispatch of B queries is padded, by replicating
     its first row, up to the smallest bucket >= B; the padding rows are
     sliced off;
-  * **result cache** — an LRU keyed by (op, statics, query content digest);
-    repeated rows short-circuit before bucketing, duplicate rows inside one
-    batch ride their twin's dispatch, and both are booked as result-cache
-    hits (``result_cache_size=0`` turns it off);
+  * **result cache** — an LRU keyed as in the JAX package (op, data epoch,
+    statics, query content digest; point ops by target slot and its
+    epoch); repeated rows short-circuit before bucketing, duplicate rows
+    inside one batch ride their twin's dispatch, and both are booked as
+    result-cache hits (``result_cache_size=0`` turns it off).  The epochs
+    stay 0: the live repository is not ported;
   * **one dispatch per group** — each (op, statics, query shape) group of a
-    batch runs as one batched call; ExactHaus answers B queries with one
-    bound-grid launch and one shared phase-2 loop.
+    batch runs as one batched call through the dispatcher.
 
 The JAX engine also keeps an executable cache, one compiled program per
 (op, bucket, k) key.  Eager PyTorch compiles nothing, so there is nothing
 to cache and that part is not ported; ``EngineStats`` keeps the query,
-dispatch and result-cache counters.  The sharded and replicated
-dispatchers, the live repository and every op but ``topk_hausdorff`` are
-later slices: ``search`` raises ``NotImplementedError`` for them.
+dispatch, result-cache and planner counters.  The sharded and replicated
+dispatchers, the live repository and the joinable ops are later slices.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import index as index_lib
-from repro_torch.core import search
+from repro_torch.core import point_search, search
 from repro_torch.core.build import pad_batch
 from repro_torch.core.index import DatasetIndex
 from repro_torch.core.repo_index import Repository
@@ -58,11 +58,30 @@ def _digest(*parts) -> bytes:
     return h.digest()
 
 
+def _take_rows(x, sel):
+    """Row subset for a miss sub-batch (``sel`` None: all rows)."""
+    if sel is None:
+        return x
+    return x[torch.as_tensor(sel, device=x.device)]
+
+
 def _take_tree_rows(tree: DatasetIndex, sel) -> DatasetIndex:
     if sel is None:
         return tree
-    idx = torch.as_tensor(sel, device=tree.points.device)
-    return DatasetIndex(*[x[idx] for x in tree])
+    return DatasetIndex(*[_take_rows(x, sel) for x in tree])
+
+
+def _split_rows(raw):
+    """Per-row entries of a dispatch output, a tuple of (B, ...) tensors
+    and per-row stats lists (device slices: splitting for the cache never
+    syncs)."""
+    return [tuple(a[i] for a in raw) for i in range(len(raw[0]))]
+
+
+def _join_rows(rows):
+    """Rows back into a dispatch output: tensors stacked, stats listed."""
+    return tuple(torch.stack(c) if isinstance(c[0], torch.Tensor)
+                 else list(c) for c in zip(*rows))
 
 
 @dataclass
@@ -74,14 +93,29 @@ class EngineStats:
     booked as ``internal``).  ``result_cache_hits`` counts rows answered
     from the LRU or by an in-batch twin, ``result_cache_misses`` rows that
     went through a dispatch.  ``per_op`` keeps the breakdown per op, with
-    the summed ExactHaus counters of :meth:`record_search`."""
+    the summed search counters of :meth:`record_search` and
+    :meth:`record_point_search`.
+
+    The planner books its own counters (:meth:`count_group`):
+    ``plan_groups`` and ``group_counts[op]`` count the dispatch groups a
+    ``search()`` call formed (op groups and pipeline stage-2 groups alike),
+    ``pipeline_stage1`` / ``pipeline_stage2`` the pipelines whose stage ran,
+    and :meth:`record_latency` each group's wall time."""
     queries: int = 0
     dispatches: int = 0
     padded_queries: int = 0          # bucket padding rows actually computed
     result_cache_hits: int = 0
     result_cache_misses: int = 0
     plan_groups: int = 0             # dispatch groups formed by search()
+    pipeline_stage1: int = 0         # pipelines whose dataset stage ran
+    pipeline_stage2: int = 0         # pipelines whose point stage ran
+    group_counts: dict = field(default_factory=dict)   # op -> groups
     per_op: dict = field(default_factory=dict)
+    latency_ewma: dict = field(default_factory=dict)   # op -> EWMA seconds
+    op_seconds: dict = field(default_factory=dict)     # op -> total seconds
+
+    #: EWMA smoothing of the per-op group latency
+    EWMA_ALPHA = 0.2
 
     def _per(self, op: str) -> dict:
         return self.per_op.setdefault(op, {"queries": 0, "dispatches": 0})
@@ -111,30 +145,81 @@ class EngineStats:
         per["result_hits"] = per.get("result_hits", 0) + hits
         per["result_misses"] = per.get("result_misses", 0) + misses
 
-    def record_search(self, op: str, stats: list) -> None:
-        """Fold one dispatch's per-query SearchStats into ``per_op[op]``:
-        summed counters, the dispatch's mean pruned fraction."""
+    def record_latency(self, op: str, seconds: float) -> None:
+        """Book one dispatch group's wall time: the sum ``op_seconds[op]``
+        and an EWMA ``latency_ewma[op]`` (the first sample seeds it)."""
+        self.op_seconds[op] = self.op_seconds.get(op, 0.0) + seconds
+        prev = self.latency_ewma.get(op)
+        self.latency_ewma[op] = (
+            seconds if prev is None
+            else prev + self.EWMA_ALPHA * (seconds - prev))
+
+    def count_group(self, op: str) -> None:
+        """Record one dispatch group formed by the planner (an op group, or
+        a pipeline stage-2 group under its point op's name)."""
+        self.plan_groups += 1
+        self.group_counts[op] = self.group_counts.get(op, 0) + 1
+
+    def _fold_stats(self, op: str, stats: list, fields: tuple) -> None:
+        """Fold one dispatch's per-query stats into ``per_op[op]``: the
+        named counters summed, ``pruned_fraction`` the dispatch's mean."""
         if not stats:
             return
         per = self._per(op)
-        for name in ("nodes_evaluated", "candidates_after_bounds",
-                     "exact_evaluations"):
+        for name in fields:
             per[name] = per.get(name, 0) + sum(getattr(s, name)
                                                for s in stats)
         per["pruned_fraction"] = (sum(s.pruned_fraction for s in stats)
                                   / len(stats))
 
+    def record_point_search(self, op: str, stats: list) -> None:
+        """Fold one point-op dispatch's PointStats into ``per_op[op]``."""
+        self._fold_stats(op, stats, ("nodes_evaluated", "leaves_scanned"))
+
+    def record_search(self, op: str, stats: list) -> None:
+        """Fold one dispatch's SearchStats into ``per_op[op]``."""
+        self._fold_stats(op, stats, ("nodes_evaluated",
+                                     "candidates_after_bounds",
+                                     "exact_evaluations"))
+
 
 class LocalDispatcher:
-    """Single-device dispatch over the resident repository."""
+    """Single-device dispatch over the resident repository.
+
+    Each ``build_*`` returns a callable that takes only the query-side
+    operands and reads ``self.repo`` when it is called, as the JAX
+    package's late-bound builders do."""
 
     def __init__(self, repo: Repository):
         self.repo = repo
 
-    def topk_hausdorff(self, q_batch: DatasetIndex, *, k: int,
-                       refine_levels: int, chunk: int):
-        return batched_ops.topk_hausdorff_batched(
-            self.repo, q_batch, k=k, refine_levels=refine_levels, chunk=chunk)
+    def _bind(self, impl, **statics):
+        def call(*args, **kw):
+            return impl(self.repo, *args, **statics, **kw)
+
+        return call
+
+    def build_range_search(self):
+        return self._bind(batched_ops.range_search_batched)
+
+    def build_topk_ia(self, k: int):
+        return self._bind(batched_ops.topk_ia_batched, k=k)
+
+    def build_topk_gbo(self, k: int):
+        return self._bind(batched_ops.topk_gbo_batched, k=k)
+
+    def build_topk_hausdorff_approx(self, k: int):
+        return self._bind(batched_ops.topk_hausdorff_approx_batched, k=k)
+
+    def build_topk_hausdorff(self, k: int, refine_levels: int, chunk: int):
+        return self._bind(batched_ops.topk_hausdorff_batched, k=k,
+                          refine_levels=refine_levels, chunk=chunk)
+
+    def build_range_points(self):
+        return self._bind(batched_ops.range_points_batched)
+
+    def build_nnp(self):
+        return self._bind(batched_ops.nnp_pruned_batched)
 
 
 class QueryEngine:
@@ -151,6 +236,13 @@ class QueryEngine:
         self._n_valid = int(repo.ds_valid.sum())
         self.dispatch = LocalDispatcher(repo)
         self.repo = repo
+        # the data epoch and the per-slot epochs of the result-cache keys;
+        # 0 until the live repository is ported
+        self._repo_epoch = 0
+
+    def slot_epoch(self, ds_id) -> int:
+        """Mutation epoch of dataset slot ``ds_id`` (0: frozen engine)."""
+        return 0
 
     @property
     def device(self) -> torch.device:
@@ -253,7 +345,109 @@ class QueryEngine:
         runs."""
         return plan_lib.execute(self, queries)
 
-    # -- ExactHaus executor ------------------------------------------------
+    # -- per-op group executors (one batched dispatch path each) ----------
+
+    def _upload(self, x, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+    def _exec_range_search(self, r_lo, r_hi):
+        """RangeS for B query boxes (host (B, d) rows) -> masks
+        (B, B_pad)."""
+        lo_np = np.atleast_2d(np.asarray(r_lo, np.float32))
+        hi_np = np.atleast_2d(np.asarray(r_hi, np.float32))
+        lo, hi = self._upload(lo_np, torch.float32), self._upload(
+            hi_np, torch.float32)
+        if not self.result_cache_size:
+            return self._range_search_dispatch(lo, hi)
+        keys = [("range_search", self._repo_epoch,
+                 _digest(lo_np[i], hi_np[i])) for i in range(lo_np.shape[0])]
+        return self._serve_cached(
+            "range_search", keys,
+            lambda sel: self._range_search_dispatch(_take_rows(lo, sel),
+                                                    _take_rows(hi, sel)),
+            split=list, join=torch.stack)
+
+    def _range_search_dispatch(self, r_lo, r_hi):
+        B = r_lo.shape[0]
+        bucket = self.bucket_for(B)
+        masks, _ = self.dispatch.build_range_search()(
+            self._pad_rows(r_lo, bucket), self._pad_rows(r_hi, bucket))
+        self.stats.count("range_search", B, bucket)
+        return masks[:B]
+
+    def _exec_topk_ia(self, q_lo, q_hi, k: int):
+        """Top-k IA for B query boxes -> (vals, ids), each (B, k)."""
+        lo_np = np.atleast_2d(np.asarray(q_lo, np.float32))
+        hi_np = np.atleast_2d(np.asarray(q_hi, np.float32))
+        lo, hi = self._upload(lo_np, torch.float32), self._upload(
+            hi_np, torch.float32)
+        if not self.result_cache_size:
+            return self._topk_ia_dispatch(lo, hi, k)
+        keys = [("topk_ia", self._repo_epoch, k, _digest(lo_np[i], hi_np[i]))
+                for i in range(lo_np.shape[0])]
+        return self._serve_cached(
+            "topk_ia", keys,
+            lambda sel: self._topk_ia_dispatch(_take_rows(lo, sel),
+                                               _take_rows(hi, sel), k),
+            split=_split_rows, join=_join_rows)
+
+    def _topk_ia_dispatch(self, q_lo, q_hi, k: int):
+        B = q_lo.shape[0]
+        bucket = self.bucket_for(B)
+        vals, ids = self.dispatch.build_topk_ia(k)(
+            self._pad_rows(q_lo, bucket), self._pad_rows(q_hi, bucket))
+        self.stats.count("topk_ia", B, bucket)
+        return vals[:B], ids[:B]
+
+    def _exec_topk_gbo(self, q_sigs, k: int):
+        """Top-k GBO for B query signatures -> (vals, ids), each (B, k).
+        The uint32 words become int64 words here, once."""
+        sigs_np = np.asarray(q_sigs)
+        if sigs_np.ndim == 1:
+            sigs_np = sigs_np[None, :]
+        sigs = self._upload(sigs_np.astype(np.int64), torch.int64)
+        if not self.result_cache_size:
+            return self._topk_gbo_dispatch(sigs, k)
+        keys = [("topk_gbo", self._repo_epoch, k, _digest(sigs_np[i]))
+                for i in range(sigs_np.shape[0])]
+        return self._serve_cached(
+            "topk_gbo", keys,
+            lambda sel: self._topk_gbo_dispatch(_take_rows(sigs, sel), k),
+            split=_split_rows, join=_join_rows)
+
+    def _topk_gbo_dispatch(self, q_sigs, k: int):
+        B = q_sigs.shape[0]
+        bucket = self.bucket_for(B)
+        vals, ids = self.dispatch.build_topk_gbo(k)(
+            self._pad_rows(q_sigs, bucket))
+        self.stats.count("topk_gbo", B, bucket)
+        return vals[:B], ids[:B]
+
+    def _exec_topk_hausdorff_approx(self, q_batch: DatasetIndex, k: int,
+                                    eps):
+        """ApproHaus for a (B, ...) query-index batch -> (vals, ids,
+        eps_eff)."""
+        if not self.result_cache_size:
+            return self._topk_hausdorff_approx_dispatch(q_batch, k, eps)
+        pts = q_batch.points.cpu().numpy()
+        val = q_batch.valid.cpu().numpy()
+        keys = [("approx_haus", self._repo_epoch, k, float(eps),
+                 q_batch.depth, _digest(pts[i], val[i]))
+                for i in range(pts.shape[0])]
+        return self._serve_cached(
+            "topk_hausdorff_approx", keys,
+            lambda sel: self._topk_hausdorff_approx_dispatch(
+                _take_tree_rows(q_batch, sel), k, eps),
+            split=_split_rows, join=_join_rows)
+
+    def _topk_hausdorff_approx_dispatch(self, q_batch: DatasetIndex, k: int,
+                                        eps):
+        B = q_batch.points.shape[0]
+        bucket = self.bucket_for(B)
+        vals, ids, eps_eff = self.dispatch.build_topk_hausdorff_approx(k)(
+            self._pad_tree(q_batch, bucket), eps=float(eps))
+        self.stats.count("topk_hausdorff_approx", B, bucket)
+        return vals[:B], ids[:B], eps_eff[:B]
 
     def _exec_topk_hausdorff(self, q_batch: DatasetIndex, k: int,
                              refine_levels: int = 3,
@@ -270,26 +464,23 @@ class QueryEngine:
         val = q_batch.valid.cpu().numpy()
         # the depth is in the key: another tree over the same points
         # changes the SearchStats
-        keys = [("exact_haus", k, refine_levels, chunk, q_batch.depth,
-                 _digest(pts[i], val[i])) for i in range(pts.shape[0])]
+        keys = [("exact_haus", self._repo_epoch, k, refine_levels, chunk,
+                 q_batch.depth, _digest(pts[i], val[i]))
+                for i in range(pts.shape[0])]
         return self._serve_cached(
             "topk_hausdorff", keys,
             lambda sel: self._topk_hausdorff_dispatch(
                 _take_tree_rows(q_batch, sel), k, refine_levels, chunk),
-            split=lambda raw: [(raw[0][i], raw[1][i], raw[2][i])
-                               for i in range(len(raw[2]))],
-            join=lambda rows: (torch.stack([r[0] for r in rows]),
-                               torch.stack([r[1] for r in rows]),
-                               [r[2] for r in rows]))
+            split=_split_rows, join=_join_rows)
 
     def _topk_hausdorff_dispatch(self, q_batch: DatasetIndex, k: int,
                                  refine_levels: int, chunk: int):
         """One batched ExactHaus dispatch plus per-query SearchStats."""
         B = q_batch.points.shape[0]
         bucket = self.bucket_for(B)
-        vals, ids, nodes, cand_after, evaluated = self.dispatch.topk_hausdorff(
-            self._pad_tree(q_batch, bucket), k=k, refine_levels=refine_levels,
-            chunk=chunk)
+        vals, ids, nodes, cand_after, evaluated = (
+            self.dispatch.build_topk_hausdorff(k, refine_levels, chunk)(
+                self._pad_tree(q_batch, bucket)))
         self.stats.count("topk_hausdorff", B, bucket)
         counters = torch.stack([nodes[:B], cand_after[:B], evaluated[:B]])
         nodes, cand_after, evaluated = counters.cpu().numpy().tolist()
@@ -300,3 +491,89 @@ class QueryEngine:
         ]
         self.stats.record_search("topk_hausdorff", stats)
         return vals[:B], ids[:B], stats
+
+    def _exec_range_points(self, ds_ids, r_lo, r_hi):
+        """RangeP for B (dataset id, box) requests on the host ->
+        (take masks (B, n_pad), list[PointStats]).  A pipeline's stage 2
+        hands its winner ids over as a device tensor and calls
+        :meth:`_range_points_device` itself: host keys there would sync in
+        the middle of the pipeline, so that path bypasses the cache."""
+        lo_np = np.atleast_2d(np.asarray(r_lo, np.float32))
+        hi_np = np.atleast_2d(np.asarray(r_hi, np.float32))
+        lo, hi = self._upload(lo_np, torch.float32), self._upload(
+            hi_np, torch.float32)
+        ids_np = np.atleast_1d(np.asarray(ds_ids, np.int64))
+        ids = self._upload(ids_np, torch.int64)
+        if not self.result_cache_size:
+            return self._range_points_dispatch(ids, lo, hi)
+        keys = [("range_points", int(ids_np[i]), self.slot_epoch(ids_np[i]),
+                 _digest(lo_np[i], hi_np[i])) for i in range(ids_np.shape[0])]
+        return self._serve_cached(
+            "range_points", keys,
+            lambda sel: self._range_points_dispatch(
+                _take_rows(ids, sel), _take_rows(lo, sel),
+                _take_rows(hi, sel)),
+            split=_split_rows, join=_join_rows)
+
+    def _range_points_device(self, ds_ids, r_lo, r_hi):
+        """One batched RangeP dispatch, left on the device: (take
+        (B, n_pad), scanned leaves per row (B,), leaves per dataset)."""
+        B = ds_ids.shape[0]
+        bucket = self.bucket_for(B)
+        take, scanned = self.dispatch.build_range_points()(
+            self._pad_rows(ds_ids, bucket), self._pad_rows(r_lo, bucket),
+            self._pad_rows(r_hi, bucket))
+        self.stats.count("range_points", B, bucket)
+        return take[:B], scanned[:B].sum(dim=1), int(scanned.shape[1])
+
+    def _range_points_dispatch(self, ds_ids, r_lo, r_hi):
+        take, scanned, n_leaves = self._range_points_device(ds_ids, r_lo,
+                                                            r_hi)
+        return take, self._point_stats("range_points", n_leaves,
+                                       scanned.cpu().tolist())
+
+    def _point_stats(self, op: str, n_total: int, counts) -> list:
+        """Per-row PointStats from host counts (RangeP: scanned leaves of
+        ``n_total``; NNP: live leaf pairs of ``n_total``), booked into
+        ``stats.per_op[op]``."""
+        stats = [point_search.PointStats(n_total, c,
+                                         1.0 - c / max(n_total, 1))
+                 for c in counts]
+        self.stats.record_point_search(op, stats)
+        return stats
+
+    def _exec_nnp(self, ds_ids, q_batch: DatasetIndex):
+        """Tree-pruned NNP for B (query, dataset id) requests on the host ->
+        (dists (B, nq), idx (B, nq), list[PointStats]).  Stage 2 calls
+        :meth:`_nnp_device` itself, as for RangeP."""
+        ids_np = np.atleast_1d(np.asarray(ds_ids, np.int64))
+        ids = self._upload(ids_np, torch.int64)
+        if not self.result_cache_size:
+            return self._nnp_dispatch(ids, q_batch)
+        pts = q_batch.points.cpu().numpy()
+        val = q_batch.valid.cpu().numpy()
+        keys = [("nnp", int(ids_np[i]), self.slot_epoch(ids_np[i]),
+                 q_batch.depth, _digest(pts[i], val[i]))
+                for i in range(ids_np.shape[0])]
+        return self._serve_cached(
+            "nnp", keys,
+            lambda sel: self._nnp_dispatch(_take_rows(ids, sel),
+                                           _take_tree_rows(q_batch, sel)),
+            split=_split_rows, join=_join_rows)
+
+    def _nnp_device(self, ds_ids, q_batch: DatasetIndex):
+        """One batched NNP dispatch through ``nnp_pruned_core``, left on the
+        device: (dists (B, nq), idx (B, nq), live leaf pairs per row (B,),
+        leaf pairs per row)."""
+        B = ds_ids.shape[0]
+        bucket = self.bucket_for(B)
+        dists, idxs, pair_live = self.dispatch.build_nnp()(
+            self._pad_rows(ds_ids, bucket), self._pad_tree(q_batch, bucket))
+        self.stats.count("nnp", B, bucket)
+        pairs = int(pair_live.shape[1] * pair_live.shape[2])
+        return dists[:B], idxs[:B], pair_live[:B].sum(dim=(1, 2)), pairs
+
+    def _nnp_dispatch(self, ds_ids, q_batch: DatasetIndex):
+        dists, idxs, live, pairs = self._nnp_device(ds_ids, q_batch)
+        return dists, idxs, self._point_stats("nnp", pairs,
+                                              live.cpu().tolist())

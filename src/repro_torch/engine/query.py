@@ -2,8 +2,8 @@
 
 A copy of ``repro.engine.query`` (numpy only), kept in the port so that it
 imports nothing of the JAX package.  The spec covers every op of the
-system; the port's engine answers ``topk_hausdorff`` so far and raises
-``NotImplementedError`` for the rest (see ``repro_torch.engine.plan``).
+system; the port's engine answers every op but the joinable ones and
+raises ``NotImplementedError`` for those (see ``repro_torch.engine.plan``).
 
 A client builds frozen :class:`Query` values (an op tag plus typed params)
 — or a two-stage :class:`Pipeline` (dataset-level top-k feeding a

@@ -37,6 +37,12 @@ KERNELS = {
                        [_P] * 4 + [_I] * 5 + [_P] * 2),
     "min_sq_dists": ("min_sq_dists.cu", "min_sq_dists_launch",
                      [_P] * 3 + [_I] * 3 + [_P] * 2),
+    "set_intersect": ("set_intersect.cu", "set_intersect_launch",
+                      [_P] * 2 + [_I] * 3 + [_P] * 2),
+    "nn_distance": ("nn_distance.cu", "nn_distance_launch",
+                    [_P] * 4 + [_I] * 3 + [_P] * 3),
+    "bound_matrices": ("bound_matrices.cu", "bound_matrices_launch",
+                       [_P] * 4 + [_I] * 4 + [_P] * 3),
 }
 
 #: launches per kernel: each wrapper adds one where it launches its kernel,

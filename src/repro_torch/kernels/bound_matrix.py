@@ -1,9 +1,12 @@
-"""Wrapper of the fused multi-level Eq. 4 bound-grid CUDA kernel.
+"""Wrappers of the two Eq. 4 bound CUDA kernels.
 
-Counterpart of ``repro.kernels.bound_matrix.bound_grid`` (the Pallas
-``_bound_grid_kernel``).  Takes CUDA tensors only and raises on anything
-else; ``repro_torch.kernels.ops.bound_grid`` routes CPU tensors to the plain
-version.  Source: ``repro_torch/csrc/bound_grid.cu``.
+Counterparts of ``repro.kernels.bound_matrix``: ``bound_grid`` replaces the
+Pallas ``_bound_grid_kernel`` (fused multi-level bounds for every
+(query, slot) pair), ``bound_matrices`` replaces ``_bound_kernel`` (the
+(lb, ub) matrices between two node frontiers), batched over pairs.  Both
+take CUDA tensors only and raise on anything else;
+``repro_torch.kernels.ops`` routes CPU tensors to the plain versions.
+Sources: ``repro_torch/csrc/bound_grid.cu``, ``bound_matrices.cu``.
 """
 from __future__ import annotations
 
@@ -12,9 +15,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.hausdorff import _stream, check_cuda
+from repro_torch.kernels.hausdorff import MAX_COORDS, _stream, check_cuda
 
 MAX_LEVELS = 32
+MAX_GRID_YZ = 65535
 
 
 def bound_grid(oq, rq, q_ok, od, rd, d_ok, *, levels):
@@ -50,3 +54,29 @@ def bound_grid(oq, rq, q_ok, od, rd, d_ok, *, levels):
                 UB.data_ptr(), _stream(dev))
     _build.launched("bound_grid", rc)
     return LB, UB
+
+
+def bound_matrices(oq, rq, od, rd):
+    """Eq. 4 (lb, ub), each (P, nq, nd) float32, for P pairs of node
+    frontiers: oq (P, nq, W) / rq (P, nq) against od (P, nd, W) /
+    rd (P, nd)."""
+    f32 = torch.float32
+    dev = check_cuda("bound_matrices",
+                     {"oq": oq, "rq": rq, "od": od, "rd": rd},
+                     {"oq": f32, "rq": f32, "od": f32, "rd": f32})
+    P, nq, W = oq.shape
+    nd = od.shape[1]
+    if (rq.shape != (P, nq) or od.shape != (P, nd, W)
+            or rd.shape != (P, nd) or not 1 <= W <= MAX_COORDS
+            or min(P, nq, nd) < 1 or max(P, nq) > MAX_GRID_YZ):
+        raise ValueError(f"bound_matrices: shapes oq {tuple(oq.shape)}, "
+                         f"rq {tuple(rq.shape)}, od {tuple(od.shape)}, "
+                         f"rd {tuple(rd.shape)}")
+    lb = torch.empty((P, nq, nd), dtype=f32, device=dev)
+    ub = torch.empty((P, nq, nd), dtype=f32, device=dev)
+    fn = _build.kernel("bound_matrices")
+    with torch.cuda.device(dev):
+        rc = fn(oq.data_ptr(), rq.data_ptr(), od.data_ptr(), rd.data_ptr(),
+                P, nq, nd, W, lb.data_ptr(), ub.data_ptr(), _stream(dev))
+    _build.launched("bound_matrices", rc)
+    return lb, ub

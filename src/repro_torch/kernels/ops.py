@@ -1,8 +1,8 @@
 """Public kernel ops: the CUDA kernel for a CUDA tensor, the plain PyTorch
 version for a CPU tensor.
 
-Counterpart of ``repro.kernels.ops`` for the three ops on the ExactHaus
-path.  There is no size-based routing and no autotune table: a CUDA tensor
+Counterpart of ``repro.kernels.ops``, one op for each of the six kernels.
+There is no size-based routing and no autotune table: a CUDA tensor
 always launches the kernel (or raises), a CPU tensor always takes the plain
 version, and the two are bitwise equal.  ``LAUNCHES[name]`` counts kernel
 launches; the plain versions book none.
@@ -11,7 +11,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, bound_matrix, hausdorff, ref
+from repro_torch.kernels import (_build, bound_matrix, hausdorff, ref,
+                                 set_intersect)
+from repro_torch.kernels import nn_distance as nn_distance_kernel
 from repro_torch.kernels.ref import BIG
 
 LAUNCHES = _build.LAUNCHES
@@ -74,3 +76,26 @@ def bound_grid(oq, rq, q_ok, od, rd, d_ok, *, levels):
     if not _route("bound_grid", oq):
         return ref.frontier_bound_levels(oq, rq, q_ok, od, rd, d_ok, levels)
     return bound_matrix.bound_grid(oq, rq, q_ok, od, rd, d_ok, levels=levels)
+
+
+def set_intersect_counts(sa: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
+    """GBO count matrix (na, nb) int32 between signature stacks (na, W) and
+    (nb, W) of int64 words."""
+    if not _route("set_intersect_counts", sa):
+        return ref.set_intersect_count(sa, sb)
+    return set_intersect.intersect_counts(sa, sb)
+
+
+def nn_distance(q, d, q_valid, d_valid):
+    """Per-Q-point NN distance and D index: (dists (nq,), idx (nq,))."""
+    if not _route("nn_distance", q):
+        return ref.nn_distance(q, d, q_valid, d_valid)
+    return nn_distance_kernel.nn_distance(q, d, q_valid, d_valid)
+
+
+def bound_matrices(oq, rq, od, rd):
+    """Eq. 4 (lb, ub) matrices for P pairs of node frontiers: oq (P, nq, W)
+    / rq (P, nq) against od (P, nd, W) / rd (P, nd) -> each (P, nq, nd)."""
+    if not _route("bound_matrices", oq):
+        return ref.bound_matrix(oq, rq, od, rd)
+    return bound_matrix.bound_matrices(oq, rq, od, rd)

@@ -101,3 +101,55 @@ def frontier_bound_levels(oq, rq, q_ok, od, rd, d_ok, levels):
         LBs.append(torch.amax(torch.where(okl, row_lb, -BIG), dim=-1))
         UBs.append(torch.amax(torch.where(okl, row_ub, -BIG), dim=-1))
     return torch.stack(LBs), torch.stack(UBs)
+
+
+def nn_distance(q: torch.Tensor, d: torch.Tensor, q_valid: torch.Tensor,
+                d_valid: torch.Tensor):
+    """Per-Q-point nearest neighbour in D: (dists (nq,) float32, idx (nq,)
+    int32).  ``torch.argmin`` returns the first index on ties, as
+    ``jnp.argmin`` does; invalid Q rows get distance 0.0 and index -1.
+    The plain version of the ``nn_distance`` kernel."""
+    d2 = masked_sq_dists(q, d, d_valid)
+    idx = torch.argmin(d2, dim=1).to(torch.int32)
+    dist = ieee_sqrt(torch.amin(d2, dim=1))
+    dist = torch.where(q_valid, dist, 0.0)
+    idx = torch.where(q_valid, idx, -1)
+    return dist, idx
+
+
+def bound_matrix(oq: torch.Tensor, rq: torch.Tensor, od: torch.Tensor,
+                 rd: torch.Tensor):
+    """Paper Eq. 4 bound matrices between two node frontiers:
+    oq (..., nq, W), rq (..., nq), od (..., nd, W), rd (..., nd) ->
+    (lb, ub), each (..., nq, nd), with lb = max(cd - rd, 0) and
+    ub = sqrt(cd^2 + rd^2) + rq.  ``rd`` is squared at its own shape before
+    the broadcast.  Leading axes (a batch of frontier pairs) broadcast; the
+    plain version of the ``bound_matrices`` kernel."""
+    cd2 = unrolled_sq_dists(oq[..., :, None, :], od[..., None, :, :])
+    cd = ieee_sqrt(cd2)
+    lb = torch.clamp_min(cd - rd[..., None, :], 0.0)
+    ub = ieee_sqrt(cd2 + (rd * rd)[..., None, :]) + rq[..., :, None]
+    return lb, ub
+
+
+def popcount64(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 word (all 64 bits), by the SWAR bit trick:
+    PyTorch has no popcount op.  Every mask clears bit 63, so the
+    arithmetic right shifts of int64 act as logical ones, and the byte sums
+    are folded with shifts, so nothing overflows."""
+    x = x - ((x >> 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + ((x >> 2) & 0x3333333333333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    x = x + (x >> 32)
+    return x & 0x7F
+
+
+def set_intersect_count(sa: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
+    """GBO counts between two signature stacks: sa (na, W), sb (nb, W)
+    int64 words holding uint32 values -> (na, nb) int32 totals of
+    popcount(sa[i, w] & sb[j, w]) over the words.  The plain version of the
+    ``set_intersect`` kernel."""
+    both = sa[:, None, :] & sb[None, :, :]
+    return popcount64(both).sum(dim=-1).to(torch.int32)

@@ -5,15 +5,17 @@ the ``cuda_device`` fixture, never at import).  On a machine with a card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
-Every comparison is bitwise: the kernels are built with ``-fmad=false`` and
-IEEE ``sqrtf``, and their arithmetic order is that of the plain versions.
+Every comparison is bitwise (exact for the integer outputs): the kernels
+are built with ``-fmad=false`` and IEEE ``sqrtf``, and their arithmetic
+order is that of the plain versions.
 Shapes are small and ragged (not multiples of any tile or warp).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import bound_matrix, hausdorff, ops, ref
+from repro_torch.kernels import (bound_matrix, hausdorff, nn_distance, ops,
+                                 ref, set_intersect)
 
 pytestmark = pytest.mark.cuda
 
@@ -98,6 +100,69 @@ def test_bound_grid(cuda_device, B, S, N):
         assert _bits_equal(g, w)
 
 
+@pytest.mark.parametrize("na,nb,W", [(1, 1, 1), (5, 130, 32),
+                                     (33, 300, 32), (17, 1000, 3)])
+def test_set_intersect(cuda_device, na, nb, W):
+    rng = np.random.default_rng(na + nb + W)
+    sa = torch.from_numpy(rng.integers(0, 2 ** 32, (na, W))).to(cuda_device)
+    sb = torch.from_numpy(rng.integers(0, 2 ** 32, (nb, W))).to(cuda_device)
+    sb[0] = 0xFFFFFFFF
+    sa[-1] = -1                      # all 64 bits: both versions count them
+    ops.reset_launches()
+    got = set_intersect.intersect_counts(sa, sb)
+    assert ops.LAUNCHES["set_intersect"] == 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref.set_intersect_count(sa, sb))
+
+
+@pytest.mark.parametrize("nq,nd,W", [(1, 1, 2), (37, 130, 2), (300, 257, 2),
+                                     (129, 700, 3), (65, 33, 5)])
+def test_nn_distance(cuda_device, nq, nd, W):
+    rng = np.random.default_rng(nq + nd + W + 1)
+    q, d = _pts(rng, (nq, W), cuda_device), _pts(rng, (nd, W), cuda_device)
+    d[nd // 2] = d[0]                # a tie: the first index wins
+    qv, dv = _mask(rng, (nq,), cuda_device), _mask(rng, (nd,), cuda_device)
+    dv[128:256] = False              # a whole invalid tile
+    ops.reset_launches()
+    got = nn_distance.nn_distance(q, d, qv, dv)
+    assert ops.LAUNCHES["nn_distance"] == 1
+    want = ref.nn_distance(q, d, qv, dv)
+    assert _bits_equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+def test_nn_distance_all_invalid(cuda_device):
+    """No valid D point: every valid row gets BIG's root at index 0, as the
+    plain argmin over an all-BIG row gives."""
+    rng = np.random.default_rng(2)
+    q, d = _pts(rng, (20, 2), cuda_device), _pts(rng, (300, 2), cuda_device)
+    qv = _mask(rng, (20,), cuda_device)
+    dv = torch.zeros(300, dtype=torch.bool, device=cuda_device)
+    got = nn_distance.nn_distance(q, d, qv, dv)
+    want = ref.nn_distance(q, d, qv, dv)
+    assert _bits_equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert torch.all(got[1][qv] == 0)
+
+
+@pytest.mark.parametrize("P,nq,nd,W", [(1, 1, 1, 2), (3, 16, 130, 2),
+                                       (5, 256, 256, 2), (2, 33, 300, 3)])
+def test_bound_matrices(cuda_device, P, nq, nd, W):
+    rng = np.random.default_rng(P + nq + nd + W)
+    oq, od = _pts(rng, (P, nq, W), cuda_device), _pts(rng, (P, nd, W),
+                                                       cuda_device)
+    rq, rd = (torch.from_numpy(rng.uniform(0, 3, (P, n)).astype(np.float32))
+              .to(cuda_device) for n in (nq, nd))
+    ops.reset_launches()
+    got = bound_matrix.bound_matrices(oq, rq, od, rd)
+    assert ops.LAUNCHES["bound_matrices"] == 1
+    for g, w in zip(got, ref.bound_matrix(oq, rq, od, rd)):
+        assert _bits_equal(g, w)
+    # a batch of one pair equals that pair in the larger batch
+    lb0, ub0 = ops.bound_matrices(oq[:1], rq[:1], od[:1], rd[:1])
+    assert _bits_equal(lb0, got[0][:1]) and _bits_equal(ub0, got[1][:1])
+
+
 def test_kernel_refuses_bad_input(cuda_device):
     q = torch.zeros((4, 2), device=cuda_device)
     v = torch.ones(4, dtype=torch.bool, device=cuda_device)
@@ -105,3 +170,10 @@ def test_kernel_refuses_bad_input(cuda_device):
         hausdorff.min_sq_dists(q.t().contiguous().t(), q, v)
     with pytest.raises(ValueError, match="float32"):
         hausdorff.min_sq_dists(q.double(), q, v)
+    with pytest.raises(ValueError, match="int64"):
+        set_intersect.intersect_counts(v[None].int(), v[None].long())
+    with pytest.raises(ValueError, match="shapes"):
+        nn_distance.nn_distance(q, q, v[:3], v)
+    with pytest.raises(ValueError, match="shapes"):
+        bound_matrix.bound_matrices(q[None], v[None].float(), q[None],
+                                    v[None, :3].float())

@@ -102,25 +102,21 @@ def test_engine_stats_and_padding(env):
 
 
 UNPORTED = [
-    Query(op="range_search", r_lo=np.zeros(2), r_hi=np.ones(2)),
-    Query(op="topk_ia", r_lo=np.zeros(2), r_hi=np.ones(2), k=3),
-    Query(op="topk_gbo", q_sig=np.zeros(32, np.uint32), k=3),
-    Query(op="topk_hausdorff_approx", q=np.ones((4, 2), np.float32), k=3,
-          eps=0.5),
-    Query(op="range_points", ds_id=0, r_lo=np.zeros(2), r_hi=np.ones(2)),
-    Query(op="nnp", ds_id=0, q=np.ones((4, 2), np.float32)),
     Query(op="topk_overlap", q=np.ones((4, 2), np.float32), k=3),
     Query(op="topk_coverage", q=np.ones((4, 2), np.float32), k=3),
-    Pipeline(Query(op="topk_hausdorff", q=np.ones((4, 2), np.float32), k=3),
+    Pipeline(Query(op="topk_overlap", q=np.ones((4, 2), np.float32), k=3),
              Query(op="nnp", q=np.ones((4, 2), np.float32))),
+    Pipeline(Query(op="topk_gbo", q_sig=np.zeros(32, np.uint32), k=3),
+             Query(op="topk_coverage", q=np.ones((4, 2), np.float32), k=2)),
 ]
 
 
-@pytest.mark.parametrize("item", UNPORTED,
-                         ids=lambda it: getattr(it, "op", "pipeline"))
+@pytest.mark.parametrize("item", UNPORTED, ids=[
+    "topk_overlap", "topk_coverage", "pipeline", "pipeline_rerank"])
 def test_unported_ops_raise(env, item):
     _, q_sets, trepo, _, _ = env
     engine = QueryEngine(trepo, result_cache_size=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1 item 8"):
         engine.search([Query(op="topk_hausdorff", q=q_sets[0], k=K), item])
     assert engine.stats.dispatches == 0       # nothing ran

@@ -20,7 +20,8 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.core.build import build_query_index, build_repository
-from repro_torch.kernels import bound_matrix, hausdorff, ops
+from repro_torch.kernels import (bound_matrix, hausdorff, nn_distance, ops,
+                                 set_intersect)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -55,8 +56,13 @@ def test_cpu_tensors_take_the_plain_path():
     n = torch.ones((1, 3), dtype=torch.bool)
     ops.bound_grid(q[None, :3], n.float(), n, d[None, :3], n.float(), n,
                    levels=((0, 1), (1, 3)))
+    ops.nn_distance(q, d, qv, dv)
+    ops.bound_matrices(q[None], qv[None].float(), d[None], dv[None].float())
+    sig = torch.arange(6, dtype=torch.int64).reshape(3, 2)
+    ops.set_intersect_counts(sig, sig)
     assert ops.LAUNCHES == {"bound_grid": 0, "hausdorff_grid": 0,
-                            "min_sq_dists": 0}
+                            "min_sq_dists": 0, "set_intersect": 0,
+                            "nn_distance": 0, "bound_matrices": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -70,6 +76,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         bound_matrix.bound_grid(q[None], v[None].float(), v[None], q[None],
                                 v[None].float(), v[None], levels=((0, 1),))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        set_intersect.intersect_counts(v[None].long(), v[None].long())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        nn_distance.nn_distance(q, q, v, v)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bound_matrix.bound_matrices(q[None], v[None].float(), q[None],
+                                    v[None].float())
     meta = torch.zeros((4, 2), device="meta")
     with pytest.raises(ValueError, match="no kernel or plain path"):
         ops.directed_hausdorff(meta, meta, v, v)
