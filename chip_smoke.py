@@ -13,12 +13,17 @@ Phases, each of which must pass (any failure raises and exits non-zero):
   2. the repository build on the card: 10,357 random-walk trajectories of
      100-2,800 points (~15 M points, T-Drive's scale), outlier removal on;
   3. the three ExactHaus kernels against their plain PyTorch versions on the
-     card, at the main path's shapes, bitwise, with CUDA-event times;
+     card, at the main path's shapes, bitwise, with CUDA-event times
+     (``hausdorff_grid`` on the first phase-2 chunk, every lane live);
   4. the ExactHaus path: ``QueryEngine.search`` on 32 held-out
-     trajectories, ``Query(op="topk_hausdorff", k=10)``, one warm-up pass
-     then timed passes, with the launch counters of both path kernels read
+     trajectories, ``Query(op="topk_hausdorff", k=10)``, one warm-up pass,
+     which keeps the operands of every ``hausdorff_grid`` launch, then
+     timed passes, with the launch counters of both path kernels read
      around one pass, then one more pass under ``torch.profiler`` for the
-     device time of each kernel and the device's idle share;
+     device time of each kernel and the device's idle share; then every
+     kept launch replayed under CUDA events (``ms_per_search``), each
+     output held bitwise against the plain version, beside the least time
+     of its live, valid work (``bound_ms_per_search``);
   5. the ExactHaus oracle ``topk_hausdorff_host`` (the third kernel) on 4 of
      those queries, bitwise against the engine, and a small repository
      checked against a numpy brute force;
@@ -61,14 +66,23 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# published H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor
-# cores, and HBM3 bandwidth
-PEAK_FP32 = 67e12
+# published H100 SXM HBM3 bandwidth (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12
-# 32-bit population counts: 16 per clock per SM on compute capability 9.0
-# (CUDA C++ Programming Guide, arithmetic instruction throughput), on 132
-# SMs at the 1.98 GHz boost clock
-PEAK_POPC = 16 * 132 * 1.98e9
+# issue rates of the pipes the kernels use, per clock per SM on compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput), on 132 SMs at the 1.98 GHz boost clock.  Where a rate is in
+# doubt the higher one is taken, so a bound stays a least time.
+SM_CLOCKS = 132 * 1.98e9
+RATES = {
+    # FP32 add, sub, mul, min, max: 128 results.  The kernels are built
+    # with -fmad=false, so no FMA pairs two of them (the data sheet's
+    # 67 TFLOP/s counts an FMA as two operations)
+    "fp32": 128 * SM_CLOCKS,
+    # an IEEE sqrtf takes at least one MUFU instruction: 16
+    "mufu": 16 * SM_CLOCKS,
+    # 32-bit population counts: 16
+    "popc32": 16 * SM_CLOCKS,
+}
 
 # the main path: T-Drive's 10,357 taxis, a burst of 32 held-out queries
 N_DATASETS = 10357
@@ -129,11 +143,21 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def least_ms(n_bytes, n_ops):
+    """The least time of some work on the card: the larger of its bytes
+    over the memory rate and, for each pipe, its operations over that
+    pipe's rate.  Returns (ms, decider): "bytes" or the pipe's name."""
+    times = {"bytes": n_bytes / PEAK_BYTES * 1e3}
+    times.update({pipe: n / RATES[pipe] * 1e3 for pipe, n in n_ops.items()})
+    by = max(times, key=times.get)
+    return times[by], by
+
+
 def kernel_row(name, source, replaces, shapes, got, want, ms, plain_ms,
-               n_bytes, n_ops, *, op_rate=PEAK_FP32, op_kind="fp32",
-               also_equal=True):
-    bound_bytes = n_bytes / PEAK_BYTES * 1e3
-    bound_ops = n_ops / op_rate * 1e3
+               n_bytes, n_ops, *, also_equal=True):
+    """One line of the kernel table; ``n_ops`` maps each issue pipe
+    ("fp32", "mufu", "popc32") to the operations the work needs on it."""
+    bound, by = least_ms(n_bytes, n_ops)
     err = max_abs(got, want)
     return {
         "name": name, "route": "cuda", "source": source,
@@ -144,18 +168,93 @@ def kernel_row(name, source, replaces, shapes, got, want, ms, plain_ms,
         # format's key, ``max_abs_diff`` the name PERF.md and the docs use
         "max_abs_err": err, "max_abs_diff": err,
         "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bound_bytes, bound_ops),
-        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "bound_ms": bound,
+        "bound_by": "bytes" if by == "bytes" else "operations",
+        "bound_pipe": by,
         "library_ms": None,
-        "bytes": n_bytes, "ops": n_ops, "op_kind": op_kind,
+        "bytes": n_bytes, "ops": n_ops,
     }
+
+
+def bound_grid_ops(bg_in, levels):
+    """The operations one ``bound_grid`` call needs on these inputs, per
+    pipe.  Per level, per pair of an occupied query node and an occupied
+    corpus node: 3W - 1 for cd^2, cd - rd, cd^2 + rd^2, the two row mins,
+    and a root (LB).  Per occupied query node and slot with an occupied
+    node at that level: max(., 0), + rq, the two level maxes, and a root
+    (UB; the root commutes with the row min).  Per corpus node: rd * rd."""
+    oq, _, q_ok, _, _, d_ok = bg_in
+    W = oq.shape[2]
+    pairs = n_rows = 0
+    for a, b in levels:
+        q_occ = int(q_ok[:, a:b].sum())
+        pairs += q_occ * int(d_ok[:, a:b].sum())
+        n_rows += q_occ * int(d_ok[:, a:b].any(dim=-1).sum())
+    return {"fp32": pairs * (3 * W + 3) + 4 * n_rows + d_ok.numel(),
+            "mufu": pairs + n_rows}
+
+
+def lanes_work(args, nvalid):
+    """(bytes, operations per pipe) that one ``hausdorff_lanes`` launch
+    needs: its live lanes' valid (row, point) pairs at 3W FP32 operations
+    each (W sub, W mul, W - 1 add, 1 min), then a root and a max per live
+    lane and valid row; the live lanes' points and masks up to their
+    extents, the live queries' valid rows, the ids, the mask and the
+    output.  ``nvalid`` (S,) counts each slot's valid points."""
+    q_c, n_q, _, _, extent, ids, live = args
+    W = q_c.shape[2]
+    rows = n_q[:, None].expand(ids.shape)[live].double()
+    slots = ids[live]
+    pairs = int((rows * nvalid[slots].double()).sum())
+    n_rows = int(rows.sum())
+    n_bytes = (int(extent[slots].double().sum()) * (4 * W + 1)
+               + int(n_q[live.any(dim=-1)].sum()) * 4 * W
+               + nbytes(ids, live) + live.numel() * 4)
+    return n_bytes, {"fp32": pairs * 3 * W + n_rows, "mufu": n_rows}
+
+
+def replay_lanes(calls, nvalid, hausdorff, ops):
+    """The ``hausdorff_grid`` row's per-search numbers: the operands of
+    every launch of one ExactHaus ``search()`` replayed under CUDA events,
+    each output held bitwise against the plain version, and the least time
+    of the live, valid work of each launch, summed."""
+    outs = [hausdorff.hausdorff_lanes(*a) for a in calls]
+    ms = event_ms(lambda: [hausdorff.hausdorff_lanes(*a) for a in calls], 3,
+                  1)
+    plain_ms = 0.0
+    for i, (args, got) in enumerate(zip(calls, outs)):
+        want, secs = sync_time(
+            lambda: ops.directed_hausdorff_lanes_plain(*args))
+        plain_ms += secs * 1e3
+        check(bits_equal(got, want), f"hausdorff_grid: replayed launch {i} "
+              f"of {len(calls)} differs from its plain version")
+    bound = 0.0
+    pairs = 0
+    for args in calls:
+        n_bytes, n_ops = lanes_work(args, nvalid)
+        bound += least_ms(n_bytes, n_ops)[0]
+        pairs += n_ops["fp32"]
+    live = sum(int(a[6].sum()) for a in calls)
+    return {"ms_per_search": ms, "plain_ms_per_search": plain_ms,
+            "bound_ms_per_search": bound,
+            "launches_replayed": len(calls),
+            "live_lanes_per_search": live,
+            "lanes_per_search": sum(a[6].numel() for a in calls),
+            "fp32_ops_per_search": pairs}
+
+
+def device_ms(per_name, kernel):
+    """Device ms of one kernel's launches in a profile: its entry points'
+    symbols hold the name (hausdorff_grid's are hausdorff_lanes_*)."""
+    sym = {"hausdorff_grid": "hausdorff_lanes"}.get(kernel, kernel)
+    return sum(t for e, t in per_name.items() if sym in e)
 
 
 def log_row(row) -> None:
     log(f"kernel {row['name']}: bitwise={row['bitwise']} "
         f"max_abs_diff={row['max_abs_diff']} ms={row['ms']:.4f} "
         f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.6f} "
-        f"({row['bound_by']})")
+        f"({row['bound_pipe']})")
 
 
 def brute_topk(datasets, q, k):
@@ -305,7 +404,7 @@ def new_kernel_rows(repo, q_batch, res2, calls, ref, kernels):
         nbytes(sa, sb, got),
         # the signature words hold 32 bits: one 32-bit popcount per word
         # pair; the AND and the add issue beside it at 4x that rate
-        na * nb * W, op_rate=PEAK_POPC, op_kind="popc32"))
+        {"popc32": na * nb * W}))
 
     # NNP oracle: the first pair the gates check, query 0 against the
     # first winner of its ExactHaus -> NNP pipeline
@@ -326,7 +425,8 @@ def new_kernel_rows(repo, q_batch, res2, calls, ref, kernels):
         nbytes(qp, dp, qv, dv, *got),
         # valid (row, point) pairs x (W sub, W mul, W-1 add, 1 compare),
         # and a root per valid row
-        int(qv.sum()) * int(dv.sum()) * (3 * W) + int(qv.sum()),
+        {"fp32": int(qv.sum()) * int(dv.sum()) * (3 * W),
+         "mufu": int(qv.sum())},
         also_equal=torch.equal(got[1], want[1])))
 
     # pruned NNP leaf bounds: the stage-2 group's (query, winner) leaf
@@ -345,9 +445,10 @@ def new_kernel_rows(repo, q_batch, res2, calls, ref, kernels):
         event_ms(lambda: bound_matrix.bound_matrices(oq, rq, od, rd), 20),
         event_ms(lambda: ref.bound_matrix(oq, rq, od, rd), 3, 1),
         nbytes(oq, rq, od, rd, *got),
-        # per node pair: 3W-1 for cd^2, sqrt, sub, max, add, sqrt, add;
-        # rd*rd once per corpus node
-        P * nlq * nld * (3 * W + 5) + P * nld))
+        # per node pair: 3W-1 for cd^2, then sub, max, add, add, and two
+        # roots; rd*rd once per corpus node
+        {"fp32": P * nlq * nld * (3 * W + 3) + P * nld,
+         "mufu": 2 * P * nlq * nld}))
     for r in rows:
         log_row(r)
         check(r["bitwise"], f"{r['name']}: kernel differs from its plain "
@@ -618,7 +719,6 @@ def main() -> int:
     want = ref.frontier_bound_levels(*bg_in, levels)
     torch.cuda.synchronize()
     B, S, W = bg_in[0].shape[0], bg_in[3].shape[0], bg_in[0].shape[2]
-    pairs = sum((b - a) ** 2 for a, b in levels)
     row = kernel_row(
         "bound_grid", "src/repro_torch/csrc/bound_grid.cu",
         "src/repro/kernels/bound_matrix.py:84",
@@ -626,42 +726,38 @@ def main() -> int:
         torch.stack(got), torch.stack(want),
         event_ms(lambda: bound_matrix.bound_grid(*bg_in, levels=levels), 20),
         event_ms(lambda: ref.frontier_bound_levels(*bg_in, levels), 3, 1),
-        nbytes(*bg_in, *got),
-        # the least the function needs.  Per node pair: 3W-1 for cd^2,
-        # sqrt, sub (cd - rd), add (cd^2 + rd^2), sqrt, 2 row mins.  Per
-        # (b, s, query node): the "+ rq" and "max(., 0)", which commute with
-        # the row min (rounding is monotonic), and 2 level maxes.  Per
-        # (s, corpus node): rd*rd, shared by every query.
-        B * S * (pairs * (3 * W + 5) + 4 * sum(b - a for a, b in levels))
-        + S * n_nodes)
+        nbytes(*bg_in, *got), bound_grid_ops(bg_in, levels))
     rows.append(row)
     log_row(row)
 
-    # a real phase-2 chunk: the first 32 ascending-LB candidates per query
+    # a real phase-2 chunk: the first 32 ascending-LB candidates per query,
+    # every lane live, on the path's compacted query rows and the resident
+    # corpus
     LB, tau, cand, _, _ = search._hausdorff_bound_phases(repo, q_batch, k, 3)
     order = torch.sort(torch.where(cand, LB, ref.BIG), dim=-1,
                        stable=True).indices
-    ids = order[:, :32]
-    ds, dsv = repo.ds_index.points[ids], repo.ds_index.valid[ids]
+    ids = order[:, :32].contiguous()
+    pts, pv = repo.ds_index.points, repo.ds_index.valid
+    q_c, n_q = search.phase2_query_rows(q_batch)
+    extent = hausdorff.valid_extent(pv)
+    live = torch.ones(ids.shape, dtype=torch.bool, device=dev)
+    lanes_in = (q_c, n_q, pts, pv, extent, ids, live)
+    got = hausdorff.hausdorff_lanes(*lanes_in)
+    ds, dsv = pts[ids], pv[ids]
     qp, qv = q_batch.points, q_batch.valid
-    got = hausdorff.hausdorff_grid(qp, ds, qv, dsv)
     want = ops.directed_hausdorff_grid_plain(qp, ds, qv, dsv)
     torch.cuda.synchronize()
-    Bq, C, nd, W = ds.shape
-    nq = qp.shape[1]
-    valid_pairs = int((qv.sum(1).double()[:, None]
-                       * dsv.sum(2).double()).sum())
+    nvalid = pv.sum(dim=-1, dtype=torch.int64)
     row = kernel_row(
         "hausdorff_grid", "src/repro_torch/csrc/hausdorff_grid.cu",
         "src/repro/kernels/hausdorff.py:96",
-        {"B": Bq, "C": C, "nq": nq, "nd": nd, "W": W}, got, want,
-        event_ms(lambda: hausdorff.hausdorff_grid(qp, ds, qv, dsv), 10),
+        {"B": ids.shape[0], "C": ids.shape[1], "nq": qp.shape[1],
+         "nqp": q_c.shape[1], "nd": pts.shape[1], "W": pts.shape[2]},
+        got, want,
+        event_ms(lambda: hausdorff.hausdorff_lanes(*lanes_in), 10),
         event_ms(lambda: ops.directed_hausdorff_grid_plain(qp, ds, qv, dsv),
                  2, 1),
-        nbytes(qp, qv, ds, dsv, got),
-        # valid (row, point) pairs x (W sub, W mul, W-1 add, 1 min), plus
-        # min, sqrt, max per valid (query row, candidate)
-        valid_pairs * (3 * W) + C * int(qv.sum()) * 3)
+        *lanes_work(lanes_in, nvalid))
     rows.append(row)
     log_row(row)
 
@@ -677,16 +773,18 @@ def main() -> int:
         event_ms(lambda: hausdorff.min_sq_dists(q0, d0, dv0), 50),
         event_ms(lambda: ref.min_sq_dists(q0, d0, dv0), 10),
         nbytes(q0, d0, dv0, got),
-        q0.shape[0] * int(dv0.sum()) * (3 * q0.shape[1]))
+        {"fp32": q0.shape[0] * int(dv0.sum()) * (3 * q0.shape[1])})
     rows.append(row)
     log_row(row)
     for r in rows:
         check(r["bitwise"], f"{r['name']}: kernel differs from its plain "
               f"version (max abs diff {r['max_abs_diff']})")
-    del got, want, ds, dsv, LB, cand, order
+    del got, want, ds, dsv, LB, cand, order, lanes_in
 
     # ---- 4. the main path: QueryEngine.search ---------------------------
-    res, warm_s = sync_time(lambda: engine.search(queries))   # warm-up
+    # warm-up; it keeps the operands of every hausdorff_grid launch
+    with keep_operands([(ops, "directed_hausdorff_lanes")]) as lane_calls:
+        res, warm_s = sync_time(lambda: engine.search(queries))
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     res, first_s = sync_time(lambda: engine.search(queries))
@@ -731,8 +829,7 @@ def main() -> int:
     if not per_name:
         log("device profile: not measured (the profiler saw no device work)")
     else:
-        by_kernel = {n: sum(t for e, t in per_name.items()
-                            if f"{n}_kernel" in e)
+        by_kernel = {n: device_ms(per_name, n)
                      for n in ("bound_grid", "hausdorff_grid")}
         top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
         log("device profile: " + json.dumps({
@@ -744,6 +841,20 @@ def main() -> int:
             "hausdorff_grid_share_of_latency":
                 by_kernel["hausdorff_grid"] / (lat * 1e3),
             "top_device_ms": top}))
+
+    # every hausdorff_grid launch of the warm-up search, replayed
+    calls = lane_calls["directed_hausdorff_lanes"]
+    check(len(calls) == launches["hausdorff_grid"],
+          f"the warm-up search made {len(calls)} hausdorff_grid launches, "
+          f"the counted one {launches['hausdorff_grid']}")
+    hg = next(r for r in rows if r["name"] == "hausdorff_grid")
+    hg.update(replay_lanes(calls, nvalid, hausdorff, ops))
+    log("hausdorff_grid per search: " + json.dumps(
+        {key: hg[key] for key in ("ms_per_search", "plain_ms_per_search",
+                                  "bound_ms_per_search", "launches_replayed",
+                                  "live_lanes_per_search",
+                                  "lanes_per_search")}))
+    del calls, lane_calls
 
     # ---- 5. the oracle on the card, and a brute-force check -------------
     ops.reset_launches()
@@ -807,8 +918,7 @@ def main() -> int:
         log("dataset/point device profile: " + json.dumps({
             "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "kernel_ms": {n: sum(t for e, t in per_name.items()
-                                 if f"{n}_kernel" in e)
+            "kernel_ms": {n: device_ms(per_name, n)
                           for n in _build.KERNELS},
             "top_device_ms": [(e[:100], t) for e, t in top]}))
     for r in res2:

@@ -17,9 +17,9 @@ Counterpart of ``repro.core.search``, single device:
                   threshold tau (the kth-smallest upper bound);
       phase 2     exact Hausdorff on the candidates in ascending lower-bound
                   order, one chunk per query per step
-                  (``ops.directed_hausdorff_grid`` for the whole (B, chunk)
-                  grid), tau re-derived from the k smallest exact values
-                  after every chunk.
+                  (``ops.directed_hausdorff_lanes`` for the live lanes of
+                  the (B, chunk) grid), tau re-derived from the k smallest
+                  exact values after every chunk.
 
 JAX's ``lax.while_loop`` becomes a Python loop over device tensors with one
 host sync per chunk (the "any query has work" test).  ``topk_hausdorff_host``
@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from repro_torch.core import geometry
 from repro_torch.core.index import DatasetIndex
 from repro_torch.core.repo_index import Repository
-from repro_torch.kernels import ops
+from repro_torch.kernels import hausdorff, ops
 from repro_torch.kernels.ref import BIG
 
 # ExactHaus prune guard: a candidate survives while LB <= tau * TAU_GUARD,
@@ -224,17 +224,29 @@ def _hausdorff_bound_phases(repo: Repository, q_idx: DatasetIndex, k: int,
     return out
 
 
+def phase2_query_rows(q_idx: DatasetIndex):
+    """Phase 2's query rows for a (B, ...) batch: each query's valid rows
+    first, cut to the largest count rounded up to the kernel's row block
+    (one host read per search).  Returns (q_c (B, nqp, W), n_q (B,))."""
+    q_c, n_q = hausdorff.compact_rows(q_idx.points, q_idx.valid)
+    grain = hausdorff.ROWS_PER_BLOCK
+    nqp = min(-(-max(int(n_q.max()), 1) // grain) * grain, q_c.shape[1])
+    return q_c[:, :nqp].contiguous(), n_q
+
+
 def _phase2_exact_loop(LB, cand, tau, q_idx: DatasetIndex,
                        ds_index: DatasetIndex, k: int, chunk: int):
     """Phase 2 of ExactHaus for a (B, ...) query batch: a loop over a shared
     (query, candidate-chunk) work frontier.
 
     Each step evaluates the next ascending-LB chunk of every query that
-    still has work in one ``ops.directed_hausdorff_grid`` call, then
-    re-derives each query's tau from its k smallest exact values.  A query
-    without work idles (its lanes are masked and its position holds), so
-    each query follows exactly the trajectory of its solo host loop.  The
-    loop stops when no query has work: one host sync per step.
+    still has work in one ``ops.directed_hausdorff_lanes`` call (the live
+    lanes only, read from the resident corpus by slot id, over the query
+    rows compacted once before the loop), then re-derives each query's tau
+    from its k smallest exact values.  A query without work idles (its
+    lanes are dead and its position holds), so each query follows exactly
+    the trajectory of its solo host loop.  The loop stops when no query
+    has work: one host sync per step.
 
     Exactness: tau is always >= the true kth-smallest H_k, so a skipped
     candidate has H >= LB > H_k and cannot enter the top-k, ties included.
@@ -254,8 +266,10 @@ def _phase2_exact_loop(LB, cand, tau, q_idx: DatasetIndex,
     order_p = F.pad(order, (0, n_pad - S))
     lb_p = F.pad(lb_sorted, (0, n_pad - S), value=BIG)
 
-    q_pts, q_val = q_idx.points, q_idx.valid
+    # the corpus is read in place by slot id
+    q_c, n_q = phase2_query_rows(q_idx)
     d_pts_all, d_val_all = ds_index.points, ds_index.valid
+    extent = hausdorff.valid_extent(d_val_all)
     lanes = torch.arange(chunk, dtype=torch.int64, device=dev)
 
     def has_work(pos, tau_c):
@@ -273,10 +287,10 @@ def _phase2_exact_loop(LB, cand, tau, q_idx: DatasetIndex,
         ids = torch.gather(order_p, 1, idx)
         lbs = torch.gather(lb_p, 1, idx)
         live = (lbs < BIG / 2) & go[:, None]
-        hs = ops.directed_hausdorff_grid(q_pts, d_pts_all[ids], q_val,
-                                         d_val_all[ids])
-        vals.scatter_reduce_(1, ids, torch.where(live, hs, BIG), "amin",
-                             include_self=True)
+        # dead lanes come back BIG and change nothing in the amin
+        hs = ops.directed_hausdorff_lanes(q_c, n_q, d_pts_all, d_val_all,
+                                          extent, ids, live)
+        vals.scatter_reduce_(1, ids, hs, "amin", include_self=True)
         evaluated += live.sum(dim=-1).to(torch.int32)
         pos = torch.where(go, pos + chunk, pos)
         # per-query threshold tightening from the k finite exacts

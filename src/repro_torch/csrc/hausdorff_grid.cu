@@ -1,37 +1,56 @@
-// Directed Hausdorff distance for every (query, candidate) pair of an
-// ExactHaus phase-2 chunk.
+// Directed Hausdorff distance for the live lanes of an ExactHaus phase-2
+// chunk, read straight from the resident corpus.
 //
 // Replaces: the Pallas kernel `_min_dist_grid_kernel` in
 // src/repro/kernels/hausdorff.py (launcher `min_sq_dists_grid`) together
 // with the epilogue of its wrapper `repro.kernels.ops.directed_hausdorff_grid`
 // (min with BIG, sqrt, -BIG for invalid query rows, max over rows).
 //
-// What it computes: q (B, nq, W), ds (B, C, nd, W) with validity masks
-// qv (B, nq), dv (B, C, nd) -> H (B, C) with
-//   H[b, c] = max over rows i < nq of (qv[b, i] ? sqrt(min(m_i, BIG)) : -BIG),
-//   m_i     = min over valid points j of sum_k (q[b, i, k] - ds[b, c, j, k])^2,
-// m_i starting at BIG.  Squares are accumulated in coordinate order and the
-// file is built with -fmad=false and IEEE sqrtf, so H is bitwise equal to
-// the plain version (repro_torch/kernels/ops.py, slab loop).  Skipping an
-// invalid D point is exact: it would contribute BIG, and m_i <= BIG always.
+// What it computes: query rows q_c (B, nqp, W) whose first n_q[b] rows are
+// query b's valid rows (compacted by the caller), the resident corpus
+// pts (S, nd, W) / pts_valid (S, nd), the slot ids (B, C) and a live mask
+// (B, C) -> H (B, C) with
+//   H[b, c] = BIG                                  if the lane is dead,
+//           = -BIG                                 if n_q[b] == 0,
+//           = max over rows i < n_q[b] of sqrt(min(m_i, BIG)) otherwise,
+//   m_i     = min over valid points j of slot ids[b, c] of
+//             sum_k (q_c[b, i, k] - pts[ids[b, c], j, k])^2, from BIG.
+// `extent[s]` bounds slot s's valid points: none lies at or past it.
+// Squares are accumulated in coordinate order and the file is built with
+// -fmad=false and IEEE sqrtf, so H is bitwise equal to the plain version
+// (repro_torch/kernels/ops.py, `directed_hausdorff_lanes_plain`).  Every
+// reordering below is exact: fminf / fmaxf return an operand, so a min or
+// max is the same bits in any order and over any split, and a member that
+// could only contribute BIG (an invalid point) or -BIG (an invalid row)
+// changes nothing when skipped.
 //
-// What bounds it on this card: FP32 issue.  At the main path's chunk shape
-// (B = 32, C = 32, nq = nd = 4096, W = 2) the padded work is 17 G point
-// pairs at 3W FP32 operations each, against only ~35 MB of input, so the
-// kernel sits far above the H100's ops:bytes ridge (~20 FP32 ops per byte).
-// What this run's data needs is less: only valid query rows against valid
-// points count, about 15 % of the padded pairs for T-Drive-sized sets.
+// What bounds it on this card: FP32 issue.  W = 2 costs 6 FP32
+// instructions per (row, point) pair (2 sub, 2 mul, 1 add, 1 min); with
+// -fmad=false there is no FMA, so the card retires at most 128 per clock
+// per SM, 33.45 T/s on 132 SMs at 1.98 GHz.  The first chunk of the main
+// path (B = 32, C = 32, all lanes live) holds 15.4 G such operations over
+// its valid rows and points, a bound of 0.459 ms, against ~35 MB of input
+// (0.01 ms at 3.35 TB/s).
 //
-// Design: one block per (b, c) pair, 256 threads.  Each thread owns
-// kRows query rows (coordinates and running mins in registers); D is
-// streamed through shared memory in tiles of 256 points, each point read
-// once from device memory per row pass and then broadcast to every thread.
-// A tile whose points are all invalid is skipped as a whole (valid points
-// sit at the front of the tree order, so this drops most padding); invalid
-// rows and ragged nq / nd are masked in the kernel, with no padding to tile
-// multiples.  The per-pair epilogue ends in a warp-shuffle max.  Not done
-// yet: skipping invalid query rows, and fusing the candidate gather
-// (`d_pts_all[ids]`, ~34 MB per chunk) into the tile loads.
+// Design: the kernel does only live, valid work.
+//  * Grid (B * C lanes, row blocks of kRowsPerBlock).  A block whose lane
+//    is dead or whose row block lies past n_q[b] exits on entry, so dead
+//    lanes and padded query rows cost a block launch and nothing more, and
+//    the tail of the loop (few live queries) still spreads over the card.
+//  * The candidate gather is fused into the tile loads: a block reads slot
+//    ids[b, c]'s points from the resident tensor (contiguous, coalesced)
+//    up to the slot's extent, and compacts each tile to its valid points
+//    in shared memory (warp ballot and prefix count), so the inner loop
+//    has no per-point branch.  A tile is loaded into registers while the
+//    previous one is computed (two shared buffers, one barrier per tile).
+//  * Each thread keeps kRows query rows in registers: one broadcast shared
+//    load of a point feeds 6 * kRows FP32 instructions.  A warp whose rows
+//    all lie past n_q[b] skips the arithmetic.
+//  * Row blocks of one lane are combined exactly: a pre-pass sets live
+//    outputs to -BIG and dead ones to BIG, and each block atomicMax-es the
+//    int bits of its non-negative row maximum.  As signed ints every
+//    non-negative float orders above -BIG, and among non-negative floats
+//    the int order is the float order.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -39,125 +58,190 @@
 namespace {
 
 constexpr float kBig = 3.4e38f;
-constexpr int kThreads = 256;
-constexpr int kTile = 256;
+// 4 warps of 2 rows a thread: of 1-4 warps x 1-8 rows, the shape that
+// took least time per search on an H100 (more rows a thread left the
+// card's tail emptier, fewer fed too little arithmetic per shared load)
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 2;                          // query rows per thread
+// rows per block; ROWS_PER_BLOCK in repro_torch/kernels/hausdorff.py
+constexpr int kRowsPerBlock = kThreads * kRows;   // 256
+constexpr int kPer = 4;                           // points per thread per tile
+constexpr int kSeg = kPer * 32;                   // one warp's tile segment
+constexpr int kTile = kWarps * kSeg;              // 512 points per tile
 
-template <int W, int kRows>
+__global__ void hausdorff_lanes_init_kernel(const uint8_t* __restrict__ live,
+                                            int n, float* __restrict__ H) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) H[i] = live[i] ? -kBig : kBig;
+}
+
+template <int W>
 __global__ void __launch_bounds__(kThreads)
-hausdorff_grid_kernel(const float* __restrict__ q,
-                      const uint8_t* __restrict__ qv,
-                      const float* __restrict__ ds,
-                      const uint8_t* __restrict__ dv, int C, int nq, int nd,
-                      float* __restrict__ H) {
-  __shared__ float s_d[kTile * W];
-  __shared__ int s_dv[kTile];
-  __shared__ float s_red[kThreads / 32];
+hausdorff_lanes_kernel(const float* __restrict__ q_c,
+                       const int* __restrict__ n_q,
+                       const float* __restrict__ pts,
+                       const uint8_t* __restrict__ pts_valid,
+                       const int* __restrict__ extent,
+                       const int64_t* __restrict__ ids,
+                       const uint8_t* __restrict__ live, int C, int nqp,
+                       int S, int nd, float* __restrict__ H) {
+  // two buffers of compacted points; each warp fills its own segment
+  __shared__ float s_d[2][kTile * W];
+  __shared__ int s_n[2][kWarps];
+  __shared__ float s_red[kWarps];
 
-  const int bc = blockIdx.x;
-  const int b = bc / C;
-  const float* qb = q + (size_t)b * nq * W;
-  const uint8_t* qvb = qv + (size_t)b * nq;
-  const float* d = ds + (size_t)bc * nd * W;
-  const uint8_t* dvb = dv + (size_t)bc * nd;
+  const int lane_id = blockIdx.x;
+  if (!live[lane_id]) return;
+  const int b = lane_id / C;
+  const int nrows = min(n_q[b], nqp);
+  const int base = blockIdx.y * kRowsPerBlock;
+  if (base >= nrows) return;
+  const int64_t slot = ids[lane_id];
+  if (slot < 0 || slot >= S) return;
+  const int ext = min(extent[slot], nd);
 
-  float hmax = -INFINITY;
-  for (int base = 0; base < nq; base += kThreads * kRows) {
-    float qr[kRows][W];
-    float m[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = base + r * kThreads + threadIdx.x;
-#pragma unroll
-      for (int c = 0; c < W; ++c)
-        qr[r][c] = row < nq ? qb[(size_t)row * W + c] : 0.0f;
-      m[r] = kBig;
-    }
-    for (int t0 = 0; t0 < nd; t0 += kTile) {
-      const int n = min(kTile, nd - t0);
-      __syncthreads();  // the previous tile is no longer read
-      int any = 0;
-      for (int t = threadIdx.x; t < kTile; t += kThreads) {
-        const int ok = t < n ? (int)dvb[t0 + t] : 0;
-        s_dv[t] = ok;
-        any |= ok;
-        if (t < n) {
-#pragma unroll
-          for (int c = 0; c < W; ++c)
-            s_d[t * W + c] = d[(size_t)(t0 + t) * W + c];
-        }
-      }
-      if (!__syncthreads_or(any)) continue;
-      for (int t = 0; t < n; ++t) {
-        if (!s_dv[t]) continue;  // uniform across the block
-        float dp[W];
-#pragma unroll
-        for (int c = 0; c < W; ++c) dp[c] = s_d[t * W + c];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          float diff = qr[r][0] - dp[0];
-          float acc = diff * diff;
-#pragma unroll
-          for (int c = 1; c < W; ++c) {
-            diff = qr[r][c] - dp[c];
-            const float sq = diff * diff;
-            acc = acc + sq;
-          }
-          m[r] = fminf(m[r], acc);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = base + r * kThreads + threadIdx.x;
-      if (row < nq) {
-        const float h = sqrtf(fminf(m[r], kBig));
-        hmax = fmaxf(hmax, qvb[row] ? h : -kBig);
-      }
-    }
-  }
-
-  for (int o = 16; o > 0; o >>= 1)
-    hmax = fmaxf(hmax, __shfl_xor_sync(0xffffffffu, hmax, o));
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int wbase = base + warp * 32 * kRows;
+  const bool active = wbase < nrows;
+
+  const float* qb = q_c + (size_t)b * nqp * W;
+  float qr[kRows][W];
+  float m[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = wbase + r * 32 + lane;
+#pragma unroll
+    for (int c = 0; c < W; ++c)
+      qr[r][c] = row < nrows ? qb[(size_t)row * W + c] : 0.0f;
+    m[r] = kBig;
+  }
+
+  const float* d = pts + (size_t)slot * nd * W;
+  const uint8_t* dv = pts_valid + (size_t)slot * nd;
+  const unsigned below = (1u << lane) - 1u;
+
+  // this thread's points of the tile at t0, held in registers
+  float pr[kPer][W];
+  bool ok[kPer];
+  auto fetch = [&](int t0) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int j = t0 + warp * kSeg + k * 32 + lane;
+      ok[k] = j < ext && dv[j] != 0;
+#pragma unroll
+      for (int c = 0; c < W; ++c)
+        pr[k][c] = ok[k] ? d[(size_t)j * W + c] : 0.0f;
+    }
+  };
+
+  if (ext > 0) fetch(0);
+  int buf = 0;
+  for (int t0 = 0; t0 < ext; t0 += kTile) {
+    // compact this warp's valid points into its segment of buffer `buf`
+    float* seg = s_d[buf] + warp * kSeg * W;
+    int n = 0;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const unsigned vote = __ballot_sync(0xffffffffu, ok[k]);
+      if (ok[k]) {
+        const int at = n + __popc(vote & below);
+#pragma unroll
+        for (int c = 0; c < W; ++c) seg[at * W + c] = pr[k][c];
+      }
+      n += __popc(vote);
+    }
+    if (lane == 0) s_n[buf][warp] = n;
+    // one barrier per tile: the other buffer was last read before it
+    __syncthreads();
+    if (t0 + kTile < ext) fetch(t0 + kTile);
+    if (active) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float* sp = s_d[buf] + w * kSeg * W;
+        const int cnt = s_n[buf][w];
+#pragma unroll 4
+        for (int t = 0; t < cnt; ++t) {
+          float dp[W];
+#pragma unroll
+          for (int c = 0; c < W; ++c) dp[c] = sp[t * W + c];
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            float diff = qr[r][0] - dp[0];
+            float acc = diff * diff;
+#pragma unroll
+            for (int c = 1; c < W; ++c) {
+              diff = qr[r][c] - dp[c];
+              const float sq = diff * diff;
+              acc = acc + sq;
+            }
+            m[r] = fminf(m[r], acc);
+          }
+        }
+      }
+    }
+    buf ^= 1;
+  }
+
+  float hmax = -INFINITY;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = wbase + r * 32 + lane;
+    if (row < nrows) hmax = fmaxf(hmax, sqrtf(fminf(m[r], kBig)));
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    hmax = fmaxf(hmax, __shfl_xor_sync(0xffffffffu, hmax, o));
   if (lane == 0) s_red[warp] = hmax;
   __syncthreads();
-  if (warp == 0) {
-    float v = lane < kThreads / 32 ? s_red[lane] : -INFINITY;
-    for (int o = 16; o > 0; o >>= 1)
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    if (lane == 0) H[bc] = v;
+  if (threadIdx.x == 0) {
+    float v = s_red[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v = fmaxf(v, s_red[w]);
+    // v >= 0: the block holds at least one valid row
+    atomicMax(reinterpret_cast<int*>(H) + lane_id, __float_as_int(v));
   }
 }
 
-template <int W, int kRows>
-int launch(const float* q, const uint8_t* qv, const float* ds,
-           const uint8_t* dv, int B, int C, int nq, int nd, float* H,
-           cudaStream_t stream) {
-  hausdorff_grid_kernel<W, kRows><<<B * C, kThreads, 0, stream>>>(
-      q, qv, ds, dv, C, nq, nd, H);
+template <int W>
+int launch(const float* q_c, const int* n_q, const float* pts,
+           const uint8_t* pts_valid, const int* extent, const int64_t* ids,
+           const uint8_t* live, int B, int C, int nqp, int S, int nd,
+           float* H, cudaStream_t stream) {
+  const int lanes = B * C;
+  hausdorff_lanes_init_kernel<<<(lanes + 255) / 256, 256, 0, stream>>>(
+      live, lanes, H);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const dim3 grid(lanes, (nqp + kRowsPerBlock - 1) / kRowsPerBlock);
+  hausdorff_lanes_kernel<W><<<grid, kThreads, 0, stream>>>(
+      q_c, n_q, pts, pts_valid, extent, ids, live, C, nqp, S, nd, H);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, nq, W), qv (B, nq), ds (B, C, nd, W), dv (B, C, nd), all
-// contiguous -> H (B, C).  W in 1..8.  Returns cudaGetLastError().
-extern "C" int hausdorff_grid_launch(const float* q, const uint8_t* qv,
-                                     const float* ds, const uint8_t* dv,
-                                     int B, int C, int nq, int nd, int W,
-                                     float* H, void* stream) {
-  if (B < 1 || C < 1 || nq < 1 || nd < 1) return (int)cudaErrorInvalidValue;
+// q_c (B, nqp, W) f32, n_q (B,) int32, pts (S, nd, W) f32, pts_valid
+// (S, nd) bool, extent (S,) int32, ids (B, C) int64, live (B, C) bool, all
+// contiguous -> H (B, C) f32.  W in 1..8.  Two launches on `stream` (the
+// output pre-pass, then the lanes); returns cudaGetLastError().
+extern "C" int hausdorff_lanes_launch(const float* q_c, const int* n_q,
+                                      const float* pts,
+                                      const uint8_t* pts_valid,
+                                      const int* extent, const int64_t* ids,
+                                      const uint8_t* live, int B, int C,
+                                      int nqp, int S, int nd, int W, float* H,
+                                      void* stream) {
+  if (B < 1 || C < 1 || nqp < 1 || S < 1 || nd < 1 ||
+      nqp > 65535 * kRowsPerBlock)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (W) {
-    case 1: return launch<1, 16>(q, qv, ds, dv, B, C, nq, nd, H, s);
-    case 2: return launch<2, 16>(q, qv, ds, dv, B, C, nq, nd, H, s);
-    case 3: return launch<3, 16>(q, qv, ds, dv, B, C, nq, nd, H, s);
-    case 4: return launch<4, 8>(q, qv, ds, dv, B, C, nq, nd, H, s);
-    case 5: return launch<5, 4>(q, qv, ds, dv, B, C, nq, nd, H, s);
-    case 6: return launch<6, 4>(q, qv, ds, dv, B, C, nq, nd, H, s);
-    case 7: return launch<7, 4>(q, qv, ds, dv, B, C, nq, nd, H, s);
-    case 8: return launch<8, 4>(q, qv, ds, dv, B, C, nq, nd, H, s);
+#define CASE(w) \
+    case w: return launch<w>(q_c, n_q, pts, pts_valid, extent, ids, live, \
+                             B, C, nqp, S, nd, H, s);
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -33,8 +33,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "bound_grid": ("bound_grid.cu", "bound_grid_launch",
                    [_P] * 8 + [_I] * 5 + [_P] * 3),
-    "hausdorff_grid": ("hausdorff_grid.cu", "hausdorff_grid_launch",
-                       [_P] * 4 + [_I] * 5 + [_P] * 2),
+    "hausdorff_grid": ("hausdorff_grid.cu", "hausdorff_lanes_launch",
+                       [_P] * 7 + [_I] * 6 + [_P] * 2),
     "min_sq_dists": ("min_sq_dists.cu", "min_sq_dists_launch",
                      [_P] * 3 + [_I] * 3 + [_P] * 2),
     "set_intersect": ("set_intersect.cu", "set_intersect_launch",

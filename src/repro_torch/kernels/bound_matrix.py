@@ -36,7 +36,8 @@ def bound_grid(oq, rq, q_ok, od, rd, d_ok, *, levels):
     S = od.shape[0]
     L = len(levels)
     if (rq.shape != (B, N) or q_ok.shape != (B, N) or od.shape != (S, N, W)
-            or rd.shape != (S, N) or d_ok.shape != (S, N)):
+            or rd.shape != (S, N) or d_ok.shape != (S, N)
+            or not 1 <= W <= MAX_COORDS):
         raise ValueError(f"bound_grid: shapes oq {tuple(oq.shape)}, "
                          f"od {tuple(od.shape)}")
     if not 1 <= L <= MAX_LEVELS or any(

@@ -3,9 +3,12 @@
 Counterparts of ``repro.kernels.hausdorff``: ``min_sq_dists`` replaces the
 Pallas ``_min_dist_kernel`` (one (Q, D) pair), ``hausdorff_grid`` replaces
 ``_min_dist_grid_kernel`` with the epilogue of ``ops.directed_hausdorff_grid``
-fused in (one launch per ExactHaus phase-2 chunk).  Both take CUDA tensors
-only and raise on anything else; ``repro_torch.kernels.ops`` routes CPU
-tensors to the plain versions.  Sources: ``repro_torch/csrc/``.
+fused in: ``hausdorff_lanes`` evaluates the live lanes of an ExactHaus
+phase-2 chunk straight from the resident corpus (one launch per chunk),
+and ``hausdorff_grid`` is the JAX-shaped grid op as one call into it.  The
+kernel wrappers take CUDA tensors only and raise on anything else;
+``repro_torch.kernels.ops`` routes CPU tensors to the plain versions.
+Sources: ``repro_torch/csrc/``.
 """
 from __future__ import annotations
 
@@ -14,6 +17,10 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_COORDS = 8
+#: query rows one block of the lanes kernel covers (kRowsPerBlock in
+#: csrc/hausdorff_grid.cu); callers round their row count up to it
+ROWS_PER_BLOCK = 256
+MAX_GRID_Y = 65535
 
 
 def check_cuda(name: str, tensors: dict, dtypes: dict) -> torch.device:
@@ -63,17 +70,81 @@ def min_sq_dists(q: torch.Tensor, d: torch.Tensor,
     return out
 
 
+def compact_rows(q: torch.Tensor, q_valid: torch.Tensor):
+    """Each query's valid rows first, in their order: q (B, nq, W), q_valid
+    (B, nq) -> (q_c (B, nq, W), n_q (B,) int32), where q_c[b, :n_q[b]] are
+    query b's valid rows.  A stable sort, a gather and a count."""
+    order = torch.sort((~q_valid).view(torch.uint8), dim=-1,
+                       stable=True).indices
+    q_c = torch.gather(q, 1, order[..., None].expand(q.shape))
+    return q_c, q_valid.sum(dim=-1, dtype=torch.int32)
+
+
+def valid_extent(valid: torch.Tensor, block: int = 4096) -> torch.Tensor:
+    """(S,) int32: one past the last valid point of each slot of
+    valid (S, nd), 0 for a slot with none.  Taken ``block`` slots at a
+    time, so the reversed copy stays small beside the corpus."""
+    nd = valid.shape[-1]
+    parts = []
+    for v in valid.split(block):
+        last = torch.argmax(v.flip(-1).view(torch.uint8), dim=-1)
+        parts.append(torch.where(v.any(dim=-1), nd - last, 0))
+    return torch.cat(parts).to(torch.int32)
+
+
+def hausdorff_lanes(q_c: torch.Tensor, n_q: torch.Tensor, pts: torch.Tensor,
+                    pts_valid: torch.Tensor, extent: torch.Tensor,
+                    ids: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """H(Q_b -> D_{ids[b, c]}) for the live lanes of a (B, C) grid, read
+    from the resident corpus, one launch.
+
+    q_c (B, nqp, W) float32 with query b's valid rows first, n_q (B,)
+    int32 their counts; pts (S, nd, W) float32, pts_valid (S, nd) bool;
+    extent (S,) int32, no valid point of slot s at or past extent[s];
+    ids (B, C) int64 slot ids, live (B, C) bool -> (B, C) float32: BIG on
+    dead lanes, -BIG on live lanes of a query with no valid row."""
+    f32, b8, i32 = torch.float32, torch.bool, torch.int32
+    dev = check_cuda("hausdorff_grid",
+                     {"q_c": q_c, "n_q": n_q, "pts": pts,
+                      "pts_valid": pts_valid, "extent": extent, "ids": ids,
+                      "live": live},
+                     {"q_c": f32, "n_q": i32, "pts": f32, "pts_valid": b8,
+                      "extent": i32, "ids": torch.int64, "live": b8})
+    B, nqp, W = q_c.shape
+    S, nd = pts_valid.shape
+    C = ids.shape[-1]
+    if (n_q.shape != (B,) or pts.shape != (S, nd, W)
+            or extent.shape != (S,) or ids.shape != (B, C)
+            or live.shape != (B, C) or not 1 <= W <= MAX_COORDS
+            or min(B, C, nqp, S, nd) < 1
+            or nqp > MAX_GRID_Y * ROWS_PER_BLOCK):
+        raise ValueError(
+            f"hausdorff_grid: shapes q_c {tuple(q_c.shape)}, n_q "
+            f"{tuple(n_q.shape)}, pts {tuple(pts.shape)}, pts_valid "
+            f"{tuple(pts_valid.shape)}, extent {tuple(extent.shape)}, ids "
+            f"{tuple(ids.shape)}, live {tuple(live.shape)}")
+    out = torch.empty((B, C), dtype=f32, device=dev)
+    fn = _build.kernel("hausdorff_grid")
+    with torch.cuda.device(dev):
+        rc = fn(q_c.data_ptr(), n_q.data_ptr(), pts.data_ptr(),
+                pts_valid.data_ptr(), extent.data_ptr(), ids.data_ptr(),
+                live.data_ptr(), B, C, nqp, S, nd, W, out.data_ptr(),
+                _stream(dev))
+    _build.launched("hausdorff_grid", rc)
+    return out
+
+
 def hausdorff_grid(q: torch.Tensor, ds: torch.Tensor, q_valid: torch.Tensor,
                    ds_valid: torch.Tensor) -> torch.Tensor:
-    """H(Q_b -> D_{b,c}) for every pair of a (B, C) grid, one launch.
+    """H(Q_b -> D_{b,c}) for every pair of a (B, C) grid, one launch of the
+    lanes kernel: ds viewed as B * C slots, every lane live.
 
     q (B, nq, W), ds (B, C, nd, W) float32; q_valid (B, nq), ds_valid
     (B, C, nd) bool -> (B, C) float32."""
     f32, b8 = torch.float32, torch.bool
-    dev = check_cuda("hausdorff_grid",
-                     {"q": q, "ds": ds, "q_valid": q_valid,
-                      "ds_valid": ds_valid},
-                     {"q": f32, "ds": f32, "q_valid": b8, "ds_valid": b8})
+    check_cuda("hausdorff_grid",
+               {"q": q, "ds": ds, "q_valid": q_valid, "ds_valid": ds_valid},
+               {"q": f32, "ds": f32, "q_valid": b8, "ds_valid": b8})
     B, C, nd, W = ds.shape
     nq = q.shape[1]
     if (q.shape != (B, nq, W) or q_valid.shape != (B, nq)
@@ -82,11 +153,9 @@ def hausdorff_grid(q: torch.Tensor, ds: torch.Tensor, q_valid: torch.Tensor,
             f"hausdorff_grid: shapes q {tuple(q.shape)}, ds {tuple(ds.shape)}"
             f", q_valid {tuple(q_valid.shape)}, "
             f"ds_valid {tuple(ds_valid.shape)}")
-    out = torch.empty((B, C), dtype=f32, device=dev)
-    fn = _build.kernel("hausdorff_grid")
-    with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), q_valid.data_ptr(), ds.data_ptr(),
-                ds_valid.data_ptr(), B, C, nq, nd, W, out.data_ptr(),
-                _stream(dev))
-    _build.launched("hausdorff_grid", rc)
-    return out
+    q_c, n_q = compact_rows(q, q_valid)
+    pts_valid = ds_valid.reshape(B * C, nd)
+    ids = torch.arange(B * C, device=q.device).view(B, C)
+    return hausdorff_lanes(q_c, n_q, ds.reshape(B * C, nd, W), pts_valid,
+                           valid_extent(pts_valid), ids,
+                           torch.ones((B, C), dtype=b8, device=q.device))

@@ -1,8 +1,9 @@
 """Public kernel ops: the CUDA kernel for a CUDA tensor, the plain PyTorch
 version for a CPU tensor.
 
-Counterpart of ``repro.kernels.ops``, one op for each of the six kernels.
-There is no size-based routing and no autotune table: a CUDA tensor
+Counterpart of ``repro.kernels.ops``, one op for each of the six kernels,
+and for ``hausdorff_grid`` two: the JAX package's grid op and phase 2's
+lane op.  There is no size-based routing and no autotune table: a CUDA tensor
 always launches the kernel (or raises), a CPU tensor always takes the plain
 version, and the two are bitwise equal.  ``LAUNCHES[name]`` counts kernel
 launches; the plain versions book none.
@@ -63,10 +64,42 @@ def directed_hausdorff_grid_plain(q, ds, q_valid, ds_valid) -> torch.Tensor:
 
 def directed_hausdorff_grid(q, ds, q_valid, ds_valid) -> torch.Tensor:
     """H(Q_b -> D_{b,c}) for q (B, nq, W) against per-query candidate
-    stacks ds (B, C, nd, W): (B, C).  The hot path of ExactHaus phase 2."""
+    stacks ds (B, C, nd, W): (B, C).  The JAX package's signature; on the
+    card one call into the lanes kernel."""
     if not _route("directed_hausdorff_grid", q):
         return directed_hausdorff_grid_plain(q, ds, q_valid, ds_valid)
     return hausdorff.hausdorff_grid(q, ds, q_valid, ds_valid)
+
+
+def directed_hausdorff_lanes_plain(q_c, n_q, pts, pts_valid, extent, ids,
+                                   live) -> torch.Tensor:
+    """Plain ``directed_hausdorff_lanes``: gather the lanes' slots, run the
+    slab loop, and set dead lanes to BIG.  ``extent`` only bounds where
+    valid points lie, so the plain version, which reads every point, has
+    no use for it."""
+    nqp = q_c.shape[1]
+    rows = torch.arange(nqp, device=q_c.device)
+    q_valid = rows[None, :] < n_q[:, None]
+    hs = directed_hausdorff_grid_plain(q_c, pts[ids], q_valid,
+                                       pts_valid[ids])
+    return torch.where(live, hs, BIG)
+
+
+def directed_hausdorff_lanes(q_c, n_q, pts, pts_valid, extent, ids,
+                             live) -> torch.Tensor:
+    """H(Q_b -> D_{ids[b, c]}) for the live lanes of an ExactHaus phase-2
+    chunk: (B, C), BIG on dead lanes, -BIG where query b has no valid row.
+
+    q_c (B, nqp, W) holds each query's valid rows first and n_q (B,) int32
+    their counts (``hausdorff.compact_rows``); pts (S, nd, W) and
+    pts_valid (S, nd) are the resident corpus, read by slot id, never
+    gathered; extent (S,) int32 bounds each slot's valid points
+    (``hausdorff.valid_extent``); ids (B, C) int64, live (B, C) bool."""
+    if not _route("directed_hausdorff_lanes", q_c):
+        return directed_hausdorff_lanes_plain(q_c, n_q, pts, pts_valid,
+                                              extent, ids, live)
+    return hausdorff.hausdorff_lanes(q_c, n_q, pts, pts_valid, extent, ids,
+                                     live)
 
 
 def bound_grid(oq, rq, q_ok, od, rd, d_ok, *, levels):

@@ -75,7 +75,7 @@ def test_hausdorff_grid(cuda_device, B, C, nq, nd, W):
     ds = _pts(rng, (B, C, nd, W), cuda_device)
     qv = _mask(rng, (B, nq), cuda_device)
     dv = _mask(rng, (B, C, nd), cuda_device, p=0.6)
-    dv[:, :, 257:] = False           # whole invalid tiles are skipped
+    dv[:, :, 257:] = False           # past the extent: never read
     ops.reset_launches()
     got = hausdorff.hausdorff_grid(q, ds, qv, dv)
     assert ops.LAUNCHES["hausdorff_grid"] == 1
@@ -83,8 +83,13 @@ def test_hausdorff_grid(cuda_device, B, C, nq, nd, W):
 
 
 @pytest.mark.parametrize("B,S,N", [(1, 1, 1), (3, 5, 7), (4, 130, 15),
-                                   (33, 257, 15), (2, 300, 31)])
+                                   (33, 257, 15), (2, 300, 31),
+                                   (5, 129, 15), (7, 383, 3)])
 def test_bound_grid(cuda_device, B, S, N):
+    """Unoccupied corpus and query nodes, a slot with no occupied node at a
+    level, a query with none, S and B not multiples of the block's slot
+    and query tiles, levels wider than the nodes a thread holds at once
+    (N = 31)."""
     rng = np.random.default_rng(B + S + N)
     levels = tuple(((1 << l) - 1, (1 << (l + 1)) - 1)
                    for l in range(int(np.log2(N + 1))))
@@ -92,12 +97,100 @@ def test_bound_grid(cuda_device, B, S, N):
     rq = torch.from_numpy(rng.uniform(0, 3, (B, N)).astype(np.float32)).to(cuda_device)
     rd = torch.from_numpy(rng.uniform(0, 3, (S, N)).astype(np.float32)).to(cuda_device)
     qok, dok = _mask(rng, (B, N), cuda_device), _mask(rng, (S, N), cuda_device)
+    a, b = levels[-1]
+    dok[S // 2, a:b] = False             # no occupied node at the last level
+    dok[S - 1] = False                   # a padded slot: none at all
+    qok[B - 1, 1:] = False               # a query occupied at the root only
     ops.reset_launches()
     got = bound_matrix.bound_grid(oq, rq, qok, od, rd, dok, levels=levels)
     assert ops.LAUNCHES["bound_grid"] == 1
     want = ref.frontier_bound_levels(oq, rq, qok, od, rd, dok, levels)
     for g, w in zip(got, want):
         assert _bits_equal(g, w)
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 4])
+def test_bound_grid_levels(cuda_device, L):
+    """L = 1..4 levels of 15-node trees, as phases 0/1 ask for them."""
+    rng = np.random.default_rng(40 + L)
+    B, S, N = 6, 200, 15
+    levels = tuple(((1 << l) - 1, (1 << (l + 1)) - 1) for l in range(L))
+    oq, od = _pts(rng, (B, N, 2), cuda_device), _pts(rng, (S, N, 2), cuda_device)
+    rq = torch.from_numpy(rng.uniform(0, 3, (B, N)).astype(np.float32)).to(cuda_device)
+    rd = torch.from_numpy(rng.uniform(0, 3, (S, N)).astype(np.float32)).to(cuda_device)
+    qok = _mask(rng, (B, N), cuda_device, p=0.6)
+    dok = _mask(rng, (S, N), cuda_device, p=0.6)
+    got = bound_matrix.bound_grid(oq, rq, qok, od, rd, dok, levels=levels)
+    want = ref.frontier_bound_levels(oq, rq, qok, od, rd, dok, levels)
+    for g, w in zip(got, want):
+        assert g.shape == (L, B, S) and _bits_equal(g, w)
+
+
+def _lanes_inputs(rng, dev, B, C, nq, S, nd, W, live_p=0.5):
+    """Random query rows (a random, non-prefix mask), a corpus whose valid
+    points form a prefix with outlier-style holes, slot ids and a live
+    mask."""
+    q = _pts(rng, (B, nq, W), dev)
+    qv = _mask(rng, (B, nq), dev, p=0.7)
+    pts = _pts(rng, (S, nd, W), dev)
+    n_valid = rng.integers(1, nd + 1, S)
+    pv = np.arange(nd)[None, :] < n_valid[:, None]
+    pv &= rng.random((S, nd)) > 0.1             # holes inside the extent
+    pv[:, 0] = True
+    pv = torch.from_numpy(pv).to(dev)
+    ids = torch.from_numpy(rng.integers(0, S, (B, C))).to(dev)
+    live = torch.from_numpy(rng.random((B, C)) < live_p).to(dev)
+    return q, qv, pts, pv, ids, live
+
+
+def _check_lanes(q, qv, pts, pv, ids, live):
+    q_c, n_q = hausdorff.compact_rows(q, qv)
+    extent = hausdorff.valid_extent(pv)
+    ops.reset_launches()
+    got = hausdorff.hausdorff_lanes(q_c, n_q, pts, pv, extent, ids, live)
+    assert ops.LAUNCHES["hausdorff_grid"] == 1
+    want = ops.directed_hausdorff_lanes_plain(q_c, n_q, pts, pv, extent,
+                                              ids, live)
+    assert _bits_equal(got, want)
+    # and the uncompacted grid on the gathered slots, for the live lanes
+    grid = ops.directed_hausdorff_grid_plain(q, pts[ids], qv, pv[ids])
+    assert _bits_equal(got[live], grid[live])
+    assert torch.all(got[~live] == ref.BIG)
+    return got
+
+
+@pytest.mark.parametrize("B,C,nq,S,nd,W", [
+    (1, 1, 1, 1, 1, 2), (3, 4, 24, 9, 100, 2), (2, 5, 300, 7, 513, 2),
+    (2, 3, 1100, 5, 70, 2), (2, 2, 50, 4, 90, 1), (2, 2, 50, 4, 90, 3),
+    (4, 8, 700, 40, 600, 2)])
+def test_hausdorff_lanes(cuda_device, B, C, nq, S, nd, W):
+    """Split rows (nq past one block's 256 rows), ragged tiles, holes,
+    dead lanes, W = 1, 2, 3."""
+    rng = np.random.default_rng(B * C + nq + nd + W)
+    _check_lanes(*_lanes_inputs(rng, cuda_device, B, C, nq, S, nd, W))
+
+
+def test_hausdorff_lanes_one_live_of_1024(cuda_device):
+    rng = np.random.default_rng(3)
+    q, qv, pts, pv, ids, live = _lanes_inputs(rng, cuda_device, 32, 32, 600,
+                                              64, 700, 2)
+    live[:] = False
+    live[17, 5] = True
+    got = _check_lanes(q, qv, pts, pv, ids, live)
+    assert int((got < ref.BIG).sum()) == 1
+
+
+def test_hausdorff_lanes_all_dead_and_empty_query(cuda_device):
+    rng = np.random.default_rng(4)
+    q, qv, pts, pv, ids, live = _lanes_inputs(rng, cuda_device, 4, 6, 300,
+                                              10, 300, 2)
+    live[:] = False
+    got = _check_lanes(q, qv, pts, pv, ids, live)
+    assert torch.all(got == ref.BIG)
+    qv[2] = False                       # a query with no valid row: -BIG
+    live[:] = True
+    got = _check_lanes(q, qv, pts, pv, ids, live)
+    assert torch.all(got[2] == -ref.BIG)
 
 
 @pytest.mark.parametrize("na,nb,W", [(1, 1, 1), (5, 130, 32),
@@ -172,6 +265,13 @@ def test_kernel_refuses_bad_input(cuda_device):
         hausdorff.min_sq_dists(q.double(), q, v)
     with pytest.raises(ValueError, match="int64"):
         set_intersect.intersect_counts(v[None].int(), v[None].long())
+    i32 = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        hausdorff.hausdorff_lanes(q[None], i32.long(), q[None], v[None], i32,
+                                  i32[None].long(), v[None, :1])
+    with pytest.raises(ValueError, match="shapes"):
+        hausdorff.hausdorff_lanes(q[None], i32, q[None], v[None, :3], i32,
+                                  i32[None].long(), v[None, :1])
     with pytest.raises(ValueError, match="shapes"):
         nn_distance.nn_distance(q, q, v[:3], v)
     with pytest.raises(ValueError, match="shapes"):

@@ -53,6 +53,10 @@ def test_cpu_tensors_take_the_plain_path():
     ops.directed_hausdorff(q, d, qv, dv)
     ops.directed_hausdorff_grid(q[None], d[None, None], qv[None],
                                 dv[None, None])
+    ops.directed_hausdorff_lanes(
+        q[None], torch.tensor([9], dtype=torch.int32), d[None], dv[None],
+        torch.tensor([13], dtype=torch.int32),
+        torch.zeros((1, 1), dtype=torch.int64), qv[None, :1])
     n = torch.ones((1, 3), dtype=torch.bool)
     ops.bound_grid(q[None, :3], n.float(), n, d[None, :3], n.float(), n,
                    levels=((0, 1), (1, 3)))
@@ -73,6 +77,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         hausdorff.hausdorff_grid(q[None], q[None, None], v[None],
                                  v[None, None])
+    i32 = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        hausdorff.hausdorff_lanes(q[None], i32, q[None], v[None], i32,
+                                  i32[None].long(), v[None, :1])
     with pytest.raises(ValueError, match="CUDA tensor"):
         bound_matrix.bound_grid(q[None], v[None].float(), v[None], q[None],
                                 v[None].float(), v[None], levels=((0, 1),))
