@@ -8,7 +8,7 @@ kernel line it prints is at the main paths' shapes.
 
 Phases, each of which must pass (any failure raises and exits non-zero):
 
-  1. the card's name and power limit, and the build of the six CUDA kernels
+  1. the card's name and power limit, and the build of the CUDA kernels
      from ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
   2. the repository build on the card: 10,357 random-walk trajectories of
      100-2,800 points (~15 M points, T-Drive's scale), outlier removal on;
@@ -32,13 +32,15 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      and ApproHaus, 8 ``Pipeline(topk_hausdorff -> nnp)`` and 8
      ``Pipeline(topk_gbo -> range_points)``; one warm-up pass, which keeps
      the operands the path hands to ``set_intersect`` and
-     ``bound_matrices``, then timed passes with the launch counters read
-     around one pass;
-  7. the three kernels of the dataset and point ops (``set_intersect``,
-     ``nn_distance``, ``bound_matrices``) against their plain versions:
-     the first two on the very operands the path gave them (bucket padding
-     included), ``nn_distance`` on the first pair the next phase's NNP
-     oracle check gives it;
+     ``bound_row_ub``, then timed passes with the launch counters read
+     around one pass (one ``set_intersect`` and one ``bound_row_ub``
+     launch, and no ``bound_matrices`` launch, or the phase fails);
+  7. the dataset and point kernels against their plain versions:
+     ``set_intersect`` and ``bound_row_ub`` on the very operands the path
+     gave them (bucket padding included), the ``bound_matrices`` matrix
+     form, with lb and with ub only, on the same frontiers, and
+     ``nn_distance`` on the first pair the next phase's NNP oracle check
+     gives it;
   8. its gates: RangeS, IA and GBO against a numpy brute force over every
      dataset, RangeP masks against a numpy brute force, ApproHaus bitwise
      against the single-query op and within 2 eps_eff of the exact
@@ -129,6 +131,36 @@ def event_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls captured in one CUDA
+    graph and replayed: the launches run back to back, free of the host's
+    per-call cost (the wrapper's checks, the ctypes call), which is tens of
+    microseconds and would otherwise set the time of a small kernel.  The
+    capture is begun and ended by hand: ``torch.cuda.graph`` would empty
+    the allocator's cache, and the paths timed after this would pay to
+    refill it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        fn()
+        graph.capture_begin()
+        for _ in range(reps):
+            fn()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    ms = event_ms(graph.replay, 3, 1) / reps
+    del graph
+    return ms
+
+
+def kernel_times(fn, reps: int):
+    """A kernel's (graph-replayed ms, eager ms): the second is ``event_ms``
+    over back-to-back calls from Python, the method of the earlier
+    records, which for a kernel of a few microseconds times the host."""
+    return graph_ms(fn, reps), event_ms(fn, reps)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -153,10 +185,11 @@ def least_ms(n_bytes, n_ops):
     return times[by], by
 
 
-def kernel_row(name, source, replaces, shapes, got, want, ms, plain_ms,
+def kernel_row(name, source, replaces, shapes, got, want, times, plain_ms,
                n_bytes, n_ops, *, also_equal=True):
-    """One line of the kernel table; ``n_ops`` maps each issue pipe
-    ("fp32", "mufu", "popc32") to the operations the work needs on it."""
+    """One line of the kernel table; ``times`` is ``kernel_times``'s pair,
+    ``n_ops`` maps each issue pipe ("fp32", "mufu", "popc32") to the
+    operations the work needs on it."""
     bound, by = least_ms(n_bytes, n_ops)
     err = max_abs(got, want)
     return {
@@ -167,7 +200,7 @@ def kernel_row(name, source, replaces, shapes, got, want, ms, plain_ms,
         # one number under both names: ``max_abs_err`` is the kernel-line
         # format's key, ``max_abs_diff`` the name PERF.md and the docs use
         "max_abs_err": err, "max_abs_diff": err,
-        "ms": ms, "plain_ms": plain_ms,
+        "ms": times[0], "eager_ms": times[1], "plain_ms": plain_ms,
         "bound_ms": bound,
         "bound_by": "bytes" if by == "bytes" else "operations",
         "bound_pipe": by,
@@ -192,6 +225,19 @@ def bound_grid_ops(bg_in, levels):
         n_rows += q_occ * int(d_ok[:, a:b].any(dim=-1).sum())
     return {"fp32": pairs * (3 * W + 3) + 4 * n_rows + d_ok.numel(),
             "mufu": pairs + n_rows}
+
+
+def row_ub_ops(oq, d_ok):
+    """The operations one ``bound_row_ub`` call needs on these inputs, per
+    pipe: per pair of a query node and an occupied corpus node, 3W - 1 for
+    cd^2, the add of rd^2 and the row min; rd * rd per occupied corpus
+    node; per row of a pair with an occupied node a root, the add of rq
+    and the cap."""
+    P, nq, W = oq.shape
+    occ = d_ok.sum(dim=-1)
+    n_rows = int((occ > 0).sum()) * nq
+    return {"fp32": int(occ.sum()) * (nq * (3 * W + 1) + 1) + 2 * n_rows,
+            "mufu": n_rows}
 
 
 def lanes_work(args, nvalid):
@@ -252,7 +298,8 @@ def device_ms(per_name, kernel):
 
 def log_row(row) -> None:
     log(f"kernel {row['name']}: bitwise={row['bitwise']} "
-        f"max_abs_diff={row['max_abs_diff']} ms={row['ms']:.4f} "
+        f"max_abs_diff={row['max_abs_diff']} ms={row['ms']:.5f} "
+        f"eager_ms={row['eager_ms']:.4f} "
         f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.6f} "
         f"({row['bound_pipe']})")
 
@@ -383,8 +430,9 @@ def path_operands(calls, name):
 
 
 def new_kernel_rows(repo, q_batch, res2, calls, ref, kernels):
-    """Phase 7: set_intersect, nn_distance and bound_matrices against their
-    plain versions on the dataset -> point path's operands."""
+    """Phase 7: set_intersect, nn_distance, bound_row_ub and both forms of
+    bound_matrices against their plain versions on the dataset -> point
+    path's operands."""
     set_intersect, nn_distance, bound_matrix = kernels
     rows = []
     # GBO: the group's query signatures, padded to its bucket, against
@@ -399,12 +447,15 @@ def new_kernel_rows(repo, q_batch, res2, calls, ref, kernels):
         "set_intersect", "src/repro_torch/csrc/set_intersect.cu",
         "src/repro/kernels/set_intersect.py:19",
         {"na": na, "nb": nb, "W": W}, got, want,
-        event_ms(lambda: set_intersect.intersect_counts(sa, sb), 50),
+        kernel_times(lambda: set_intersect.intersect_counts(sa, sb), 50),
         event_ms(lambda: ref.set_intersect_count(sa, sb), 3, 1),
         nbytes(sa, sb, got),
-        # the signature words hold 32 bits: one 32-bit popcount per word
-        # pair; the AND and the add issue beside it at 4x that rate
-        {"popc32": na * nb * W}))
+        # the binary tensor cores take the popcounts; their rate is not
+        # among the published ones, so the bytes bound the kernel
+        {}))
+    # what one 32-bit popcount per word pair would take on the popcount
+    # pipe, the bound of a kernel that counts there
+    rows[-1]["popc32_bound_ms"] = least_ms(0, {"popc32": na * nb * W})[0]
 
     # NNP oracle: the first pair the gates check, query 0 against the
     # first winner of its ExactHaus -> NNP pipeline
@@ -420,7 +471,7 @@ def new_kernel_rows(repo, q_batch, res2, calls, ref, kernels):
         "nn_distance", "src/repro_torch/csrc/nn_distance.cu",
         "src/repro/kernels/nn_distance.py:21",
         {"nq": nq, "nd": dp.shape[0], "W": W}, got[0], want[0],
-        event_ms(lambda: nn_distance.nn_distance(qp, dp, qv, dv), 50),
+        kernel_times(lambda: nn_distance.nn_distance(qp, dp, qv, dv), 50),
         event_ms(lambda: ref.nn_distance(qp, dp, qv, dv), 10),
         nbytes(qp, dp, qv, dv, *got),
         # valid (row, point) pairs x (W sub, W mul, W-1 add, 1 compare),
@@ -430,25 +481,58 @@ def new_kernel_rows(repo, q_batch, res2, calls, ref, kernels):
         also_equal=torch.equal(got[1], want[1])))
 
     # pruned NNP leaf bounds: the stage-2 group's (query, winner) leaf
-    # frontiers, padded to its bucket
-    oq, rq, od, rd = path_operands(calls, "bound_matrices")
-    got = bound_matrix.bound_matrices(oq, rq, od, rd)
-    want = ref.bound_matrix(oq, rq, od, rd)
+    # frontiers, padded to its bucket, and the winners' leaf occupancy
+    oq, rq, od, rd, d_ok = path_operands(calls, "bound_row_ub")
+    got = bound_matrix.bound_row_ub(oq, rq, od, rd, d_ok)
+    want = ref.bound_row_ub(oq, rq, od, rd, d_ok)
     torch.cuda.synchronize()
     P, nlq, W = oq.shape
     nld = od.shape[1]
-    rows.append(kernel_row(
+    shapes = {"P": P, "nq": nlq, "nd": nld, "W": W}
+    row = kernel_row(
+        "bound_row_ub", "src/repro_torch/csrc/bound_matrices.cu",
+        "src/repro/kernels/bound_matrix.py:26", shapes, got, want,
+        kernel_times(lambda: bound_matrix.bound_row_ub(oq, rq, od, rd, d_ok),
+                     50),
+        event_ms(lambda: ref.bound_row_ub(oq, rq, od, rd, d_ok), 3, 1),
+        nbytes(oq, rq, od, rd, d_ok, got), row_ub_ops(oq, d_ok))
+    # what the path ran before the fused launch: the matrix kernel, then
+    # the masked row min as two eager passes over ub
+    row["composition_ms"] = graph_ms(lambda: torch.amin(torch.where(
+        d_ok[:, None, :], bound_matrix.bound_matrices(oq, rq, od, rd)[1],
+        ref.BIG), dim=-1), 20)
+    row["dense_bound_ms"] = least_ms(
+        nbytes(oq, rq, od, rd, d_ok, got),
+        {"fp32": P * nlq * nld * (3 * W + 1) + P * nld + 2 * P * nlq,
+         "mufu": P * nlq})[0]
+    row["occupied_corpus_nodes"] = int(d_ok.sum())
+    rows.append(row)
+
+    # the matrix form on the same frontiers, with lb and with ub only
+    got = bound_matrix.bound_matrices(oq, rq, od, rd)
+    want = ref.bound_matrix(oq, rq, od, rd)
+    ub_only = bound_matrix.bound_matrices(oq, rq, od, rd, with_lb=False)
+    torch.cuda.synchronize()
+    row = kernel_row(
         "bound_matrices", "src/repro_torch/csrc/bound_matrices.cu",
-        "src/repro/kernels/bound_matrix.py:26",
-        {"P": P, "nq": nlq, "nd": nld, "W": W},
+        "src/repro/kernels/bound_matrix.py:26", shapes,
         torch.stack(got), torch.stack(want),
-        event_ms(lambda: bound_matrix.bound_matrices(oq, rq, od, rd), 20),
+        kernel_times(lambda: bound_matrix.bound_matrices(oq, rq, od, rd), 20),
         event_ms(lambda: ref.bound_matrix(oq, rq, od, rd), 3, 1),
         nbytes(oq, rq, od, rd, *got),
         # per node pair: 3W-1 for cd^2, then sub, max, add, add, and two
         # roots; rd*rd once per corpus node
         {"fp32": P * nlq * nld * (3 * W + 3) + P * nld,
-         "mufu": 2 * P * nlq * nld}))
+         "mufu": 2 * P * nlq * nld},
+        also_equal=ub_only[0] is None and bits_equal(ub_only[1], want[1]))
+    # ub only: cd^2, cd^2 + rd^2, + rq and one root per node pair
+    row["ub_only_ms"] = graph_ms(lambda: bound_matrix.bound_matrices(
+        oq, rq, od, rd, with_lb=False), 20)
+    row["ub_only_bound_ms"], row["ub_only_bound_pipe"] = least_ms(
+        nbytes(oq, rq, od, rd, ub_only[1]),
+        {"fp32": P * nlq * nld * (3 * W + 1) + P * nld,
+         "mufu": P * nlq * nld})
+    rows.append(row)
     for r in rows:
         log_row(r)
         check(r["bitwise"], f"{r['name']}: kernel differs from its plain "
@@ -676,7 +760,7 @@ def main() -> int:
 
     # ---- 1. kernel build ----------------------------------------------
     build_s = _build.build_all()
-    log(f"kernel build: {build_s:.2f} s ({len(_build.KERNELS)} sources, "
+    log(f"kernel build: {build_s:.2f} s ({len(_build.SOURCES)} sources, "
         f"{_build.build_dir()})")
 
     # ---- 2. repository build at full width -----------------------------
@@ -724,7 +808,8 @@ def main() -> int:
         "src/repro/kernels/bound_matrix.py:84",
         {"B": B, "S": S, "N": n_nodes, "W": W, "L": len(levels)},
         torch.stack(got), torch.stack(want),
-        event_ms(lambda: bound_matrix.bound_grid(*bg_in, levels=levels), 20),
+        kernel_times(lambda: bound_matrix.bound_grid(*bg_in, levels=levels),
+                     20),
         event_ms(lambda: ref.frontier_bound_levels(*bg_in, levels), 3, 1),
         nbytes(*bg_in, *got), bound_grid_ops(bg_in, levels))
     rows.append(row)
@@ -754,7 +839,7 @@ def main() -> int:
         {"B": ids.shape[0], "C": ids.shape[1], "nq": qp.shape[1],
          "nqp": q_c.shape[1], "nd": pts.shape[1], "W": pts.shape[2]},
         got, want,
-        event_ms(lambda: hausdorff.hausdorff_lanes(*lanes_in), 10),
+        kernel_times(lambda: hausdorff.hausdorff_lanes(*lanes_in), 10),
         event_ms(lambda: ops.directed_hausdorff_grid_plain(qp, ds, qv, dsv),
                  2, 1),
         *lanes_work(lanes_in, nvalid))
@@ -770,7 +855,7 @@ def main() -> int:
         "min_sq_dists", "src/repro_torch/csrc/min_sq_dists.cu",
         "src/repro/kernels/hausdorff.py:34",
         {"nq": q0.shape[0], "nd": d0.shape[0], "W": q0.shape[1]}, got, want,
-        event_ms(lambda: hausdorff.min_sq_dists(q0, d0, dv0), 50),
+        kernel_times(lambda: hausdorff.min_sq_dists(q0, d0, dv0), 50),
         event_ms(lambda: ref.min_sq_dists(q0, d0, dv0), 10),
         nbytes(q0, d0, dv0, got),
         {"fp32": q0.shape[0] * int(dv0.sum()) * (3 * q0.shape[1])})
@@ -906,7 +991,7 @@ def main() -> int:
         repo, engine, q_sets, q_batch,
         q_sigs.cpu().numpy().astype(np.uint32), eps, reps, Query, Pipeline,
         ops, [(set_intersect, "intersect_counts"),
-              (bound_matrix, "bound_matrices")])
+              (bound_matrix, "bound_row_ub")])
     log("dataset/point path: " + json.dumps(summary))
     # one more pass, under the profiler: where the device time goes
     per_name, busy_ms, wall_ms = device_profile(lambda: engine.search(items))
@@ -929,8 +1014,12 @@ def main() -> int:
         if r.ids is not None and r.op != "pipeline":
             check(r.ids.shape == (K,) and (r.ids >= 0).all()
                   and (r.ids < N_DATASETS).all(), f"{r.op}: ids")
-    for name in ("set_intersect", "bound_matrices"):
-        check(launches2[name] > 0, f"{name} was not launched by search()")
+    # one GBO group and one NNP group: one launch each, and the pruned NNP
+    # takes its row bounds from the fused launch, never the matrices
+    for name, n in (("set_intersect", 1), ("bound_row_ub", 1),
+                    ("bound_matrices", 0)):
+        check(launches2[name] == n, f"search() launched {name} "
+              f"{launches2[name]} times, not {n}")
 
     # ---- 7. the dataset / point kernels vs plain versions ---------------
     rows += new_kernel_rows(repo, q_batch, res2, calls, ref,
@@ -938,8 +1027,8 @@ def main() -> int:
     del calls
 
     # ---- 8. the gates -----------------------------------------------------
-    launches["set_intersect"] = launches2["set_intersect"]
-    launches["bound_matrices"] = launches2["bound_matrices"]
+    for name in ("set_intersect", "bound_row_ub", "bound_matrices"):
+        launches[name] = launches2[name]
     launches["nn_distance"] = dataset_point_gates(
         repo, res2, lo, hi, q_batch, eps, search, point_search, ops)
 

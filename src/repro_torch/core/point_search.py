@@ -6,9 +6,10 @@ RangeP (Def. 11): all points of a chosen dataset inside a query rectangle;
                   leaves that miss it are pruned, leaves inside it are taken
                   whole, and only boundary leaves test their points.
 NNP (Def. 12):    the nearest neighbour in D of every point of Q.  The
-                  pruned form bounds every (Q leaf, D leaf) pair by Eq. 4
-                  (``ops.bound_matrices``) and scans only the D leaves that
-                  can hold a nearest neighbour; ``nnp`` scans all of D
+                  pruned form bounds every Q leaf by its least Eq. 4 upper
+                  bound over the occupied D leaves (``ops.bound_row_ub``)
+                  and scans only the D leaves that can hold a nearest
+                  neighbour; ``nnp`` scans all of D
                   (``ops.nn_distance``) and is the oracle.
 
 The ``*_core`` functions take a leading batch axis of (query, dataset)
@@ -93,10 +94,11 @@ def nnp_pruned_core(q_idx: DatasetIndex, d_idx: DatasetIndex):
     (P, q leaves, d leaves))."""
     oq, rq, cq = _leaf_frontier(q_idx)
     od, rd, cd = _leaf_frontier(d_idx)
-    _, ub = ops.bound_matrices(oq.contiguous(), rq.contiguous(),
-                               od.contiguous(), rd.contiguous())
-    d_ok = (cd > 0)[:, None, :]
-    row_ub = torch.amin(torch.where(d_ok, ub, BIG), dim=-1)
+    d_ok = cd > 0
+    row_ub = ops.bound_row_ub(oq.contiguous(), rq.contiguous(),
+                              od.contiguous(), rd.contiguous(),
+                              d_ok.contiguous())
+    d_ok = d_ok[:, None, :]
     # per-point lower bound: a Q point at the leaf's edge can be r_q closer
     # than Eq. 4's lb, so a D leaf is dropped only when cd - r_q - r_d
     # exceeds the Q leaf's worst-case NN bound row_ub

@@ -2,7 +2,8 @@
 
 Each source in ``repro_torch/csrc/`` is compiled on first use into its own
 shared library with a plain C interface, all sources at once (one ``nvcc``
-process each, started together).  The libraries land in
+process each, started together); a source may hold the entry points of
+several kernels.  The libraries land in
 ``build/repro_torch_kernels/<hash>/`` at the repository root, keyed by a hash
 of the sources and the flags, so an edited kernel is rebuilt and an
 unchanged one is loaded as it is.  A failed build raises with the compiler's
@@ -43,7 +44,12 @@ KERNELS = {
                     [_P] * 4 + [_I] * 3 + [_P] * 3),
     "bound_matrices": ("bound_matrices.cu", "bound_matrices_launch",
                        [_P] * 4 + [_I] * 4 + [_P] * 3),
+    "bound_row_ub": ("bound_matrices.cu", "bound_row_ub_launch",
+                     [_P] * 5 + [_I] * 4 + [_P] * 2),
 }
+
+#: the sources, each built once into ``lib<stem>.so``
+SOURCES = sorted({src for src, _, _ in KERNELS.values()})
 
 #: launches per kernel: each wrapper adds one where it launches its kernel,
 #: and nowhere else (``repro_torch.kernels.ops.LAUNCHES`` is this dict)
@@ -78,33 +84,37 @@ def build_dir() -> Path:
 
 
 def build_all() -> float:
-    """Compile every kernel whose library is missing, all in parallel.
+    """Compile every source whose library is missing, all in parallel.
     Returns the wall seconds spent (0 when everything was built)."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
-    todo = [(name, out_dir / f"lib{name}.so") for name in KERNELS
-            if not (out_dir / f"lib{name}.so").exists()]
+    todo = [(src, _lib_path(src)) for src in SOURCES
+            if not _lib_path(src).exists()]
     if not todo:
         return 0.0
     t0 = time.perf_counter()
     nvcc = _nvcc()
     procs = []
-    for name, lib in todo:
-        tmp = lib.with_name(f"lib{name}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
-        procs.append((name, lib, tmp, subprocess.Popen(
+    for src, lib in todo:
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        procs.append((src, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     errors = []
-    for name, lib, tmp, proc in procs:
+    for src, lib, tmp, proc in procs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
+            errors.append(f"{src}: nvcc exit {proc.returncode}\n{out}")
         else:
             os.replace(tmp, lib)
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
     return time.perf_counter() - t0
+
+
+def _lib_path(src: str) -> Path:
+    return build_dir() / f"lib{Path(src).stem}.so"
 
 
 def kernel(name: str):
@@ -113,7 +123,7 @@ def kernel(name: str):
     if fn is None:
         build_all()
         src, sym, argtypes = KERNELS[name]
-        lib = ctypes.CDLL(str(build_dir() / f"lib{name}.so"))
+        lib = ctypes.CDLL(str(_lib_path(src)))
         _libs.append(lib)
         fn = getattr(lib, sym)
         fn.argtypes = argtypes

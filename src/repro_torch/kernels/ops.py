@@ -2,10 +2,12 @@
 version for a CPU tensor.
 
 Counterpart of ``repro.kernels.ops``, one op for each of the six kernels,
-and for ``hausdorff_grid`` two: the JAX package's grid op and phase 2's
-lane op.  There is no size-based routing and no autotune table: a CUDA tensor
-always launches the kernel (or raises), a CPU tensor always takes the plain
-version, and the two are bitwise equal.  ``LAUNCHES[name]`` counts kernel
+and two for ``hausdorff_grid`` (the JAX package's grid op and phase 2's
+lane op) and for ``bound_matrices`` (the JAX package's matrix op and the
+pruned NNP's ``bound_row_ub``, its masked row min fused in).  There is no
+size-based routing and no autotune table: a CUDA tensor always launches
+the kernel (or raises), a CPU tensor always takes the plain version, and
+the two are bitwise equal.  ``LAUNCHES[name]`` counts kernel
 launches; the plain versions book none.
 """
 from __future__ import annotations
@@ -126,9 +128,20 @@ def nn_distance(q, d, q_valid, d_valid):
     return nn_distance_kernel.nn_distance(q, d, q_valid, d_valid)
 
 
-def bound_matrices(oq, rq, od, rd):
+def bound_matrices(oq, rq, od, rd, *, with_lb=True):
     """Eq. 4 (lb, ub) matrices for P pairs of node frontiers: oq (P, nq, W)
-    / rq (P, nq) against od (P, nd, W) / rd (P, nd) -> each (P, nq, nd)."""
+    / rq (P, nq) against od (P, nd, W) / rd (P, nd) -> each (P, nq, nd).
+    With ``with_lb=False`` lb is None (the kernel then writes ub only)."""
     if not _route("bound_matrices", oq):
-        return ref.bound_matrix(oq, rq, od, rd)
-    return bound_matrix.bound_matrices(oq, rq, od, rd)
+        lb, ub = ref.bound_matrix(oq, rq, od, rd)
+        return (lb if with_lb else None), ub
+    return bound_matrix.bound_matrices(oq, rq, od, rd, with_lb=with_lb)
+
+
+def bound_row_ub(oq, rq, od, rd, d_ok):
+    """Row upper bounds of the pruned NNP, (P, nq): the min over corpus
+    nodes j of ``d_ok[p, j] ? ub[p, i, j] : BIG``, one launch on the card
+    (the (P, nq, nd) matrix is never stored).  See ``ref.bound_row_ub``."""
+    if not _route("bound_row_ub", oq):
+        return ref.bound_row_ub(oq, rq, od, rd, d_ok)
+    return bound_matrix.bound_row_ub(oq, rq, od, rd, d_ok)

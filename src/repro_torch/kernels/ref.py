@@ -132,6 +132,18 @@ def bound_matrix(oq: torch.Tensor, rq: torch.Tensor, od: torch.Tensor,
     return lb, ub
 
 
+def bound_row_ub(oq: torch.Tensor, rq: torch.Tensor, od: torch.Tensor,
+                 rd: torch.Tensor, d_ok: torch.Tensor) -> torch.Tensor:
+    """The pruned NNP's row upper bounds: for each query node, the least
+    Eq. 4 ub over the corpus nodes, with unoccupied ones (``d_ok`` False)
+    counted as BIG.  oq (..., nq, W), rq (..., nq), od (..., nd, W),
+    rd, d_ok (..., nd) -> (..., nq).  ``bound_matrix``'s ub, masked and
+    reduced as the JAX package's ``nnp_pruned_core`` does; the plain
+    version of the ``bound_row_ub`` kernel."""
+    _, ub = bound_matrix(oq, rq, od, rd)
+    return torch.amin(torch.where(d_ok[..., None, :], ub, BIG), dim=-1)
+
+
 def popcount64(x: torch.Tensor) -> torch.Tensor:
     """Set bits of each int64 word (all 64 bits), by the SWAR bit trick:
     PyTorch has no popcount op.  Every mask clears bit 63, so the

@@ -12,8 +12,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.hausdorff import _stream, check_cuda
 
-#: query rows one block keeps in registers (``kRows`` in the source)
-ROWS = 16
+#: query rows of one block's tile (``kRows`` in the source)
+ROWS = 64
 MAX_GRID_Y = 65535
 
 

@@ -256,6 +256,90 @@ def test_bound_matrices(cuda_device, P, nq, nd, W):
     assert _bits_equal(lb0, got[0][:1]) and _bits_equal(ub0, got[1][:1])
 
 
+def _frontiers(rng, dev, P, nq, nd, W):
+    oq, od = _pts(rng, (P, nq, W), dev), _pts(rng, (P, nd, W), dev)
+    rq, rd = (torch.from_numpy(rng.uniform(0, 3, (P, n)).astype(np.float32))
+              .to(dev) for n in (nq, nd))
+    return oq, rq, od, rd
+
+
+@pytest.mark.parametrize("P,nq,nd,W", [(1, 1, 1, 2), (3, 16, 130, 2),
+                                       (5, 256, 256, 2), (2, 33, 300, 3)])
+def test_bound_matrices_ub_only(cuda_device, P, nq, nd, W):
+    """A null lb: the kernel writes ub only, the same bits."""
+    rng = np.random.default_rng(P + nq + nd + W + 7)
+    args = _frontiers(rng, cuda_device, P, nq, nd, W)
+    ops.reset_launches()
+    lb, ub = bound_matrix.bound_matrices(*args, with_lb=False)
+    assert lb is None and ops.LAUNCHES["bound_matrices"] == 1
+    assert _bits_equal(ub, ref.bound_matrix(*args)[1])
+
+
+def _row_ub_edges(rng, dev, P, nq, nd, W):
+    """Random frontiers whose last pairs hold the edge rows: no occupied
+    node, exactly one, every node occupied with a tied pair; masked nodes
+    hold inf and NaN centers and radii."""
+    oq, rq, od, rd = _frontiers(rng, dev, P, nq, nd, W)
+    d_ok = torch.from_numpy(rng.random((P, nd)) < 0.5).to(dev)
+    if P >= 4:
+        d_ok[P - 3] = False
+        d_ok[P - 2] = False
+        d_ok[P - 2, nd // 2] = True
+        d_ok[P - 1] = True
+        od[P - 1, -1], rd[P - 1, -1] = od[P - 1, 0], rd[P - 1, 0]
+    od[~d_ok] = float("nan")
+    od[..., 0] = torch.where(d_ok, od[..., 0], float("inf"))
+    rd[~d_ok] = float("nan")
+    return oq, rq, od, rd, d_ok
+
+
+@pytest.mark.parametrize("P,nq,nd,W", [
+    (1, 1, 1, 2), (4, 37, 130, 2), (5, 256, 256, 2), (6, 33, 700, 2),
+    (4, 17, 19, 1), (4, 9, 41, 3), (4, 9, 41, 4), (4, 9, 41, 5),
+    (4, 9, 41, 6), (4, 9, 41, 7), (4, 9, 41, 8), (130, 40, 1100, 2)])
+def test_bound_row_ub(cuda_device, P, nq, nd, W):
+    """Ragged P, nq and nd (nd past one staged chunk of 512 nodes, and not
+    a multiple of it), W = 1..8, and the edge rows."""
+    rng = np.random.default_rng(P * nq + nd + W)
+    args = _row_ub_edges(rng, cuda_device, P, nq, nd, W)
+    ops.reset_launches()
+    got = bound_matrix.bound_row_ub(*args)
+    assert ops.LAUNCHES["bound_row_ub"] == 1
+    assert got.shape == (P, nq)
+    want = ref.bound_row_ub(*args)
+    assert _bits_equal(got, want)
+    if P >= 4:
+        assert torch.all(got[P - 3] == ref.BIG)
+        assert torch.all(got[P - 1] < ref.BIG)
+
+
+@pytest.mark.parametrize("na,nb,W", [(64, 16384, 32), (65, 1000, 33),
+                                     (3, 127, 5), (130, 70, 64)])
+def test_set_intersect_tiles(cuda_device, na, nb, W):
+    """The path's shape, and ragged tiles and word chunks."""
+    rng = np.random.default_rng(na * nb + W)
+    sa = torch.from_numpy(rng.integers(0, 2 ** 32, (na, W))).to(cuda_device)
+    sb = torch.from_numpy(rng.integers(0, 2 ** 32, (nb, W))).to(cuda_device)
+    ops.reset_launches()
+    got = set_intersect.intersect_counts(sa, sb)
+    assert ops.LAUNCHES["set_intersect"] == 1
+    assert torch.equal(got, ref.set_intersect_count(sa, sb))
+
+
+def test_set_intersect_high_half_in_one_block(cuda_device):
+    """Set high halves in the slot words of one block (slots 128..191,
+    words 32..39): that block counts the chunk with all 64 bits, every
+    other block with 32."""
+    rng = np.random.default_rng(12)
+    sa = torch.from_numpy(rng.integers(0, 2 ** 32, (64, 40))).to(cuda_device)
+    sb = torch.from_numpy(rng.integers(0, 2 ** 32, (300, 40))).to(cuda_device)
+    sa[:, 32:] |= 0xFFFF                 # low bits the wide words meet
+    sb[130, 35] |= 1 << 40
+    sb[131, 36] = -1                     # all 64 bits, the sign bit too
+    got = set_intersect.intersect_counts(sa, sb)
+    assert torch.equal(got, ref.set_intersect_count(sa, sb))
+
+
 def test_kernel_refuses_bad_input(cuda_device):
     q = torch.zeros((4, 2), device=cuda_device)
     v = torch.ones(4, dtype=torch.bool, device=cuda_device)
@@ -277,3 +361,9 @@ def test_kernel_refuses_bad_input(cuda_device):
     with pytest.raises(ValueError, match="shapes"):
         bound_matrix.bound_matrices(q[None], v[None].float(), q[None],
                                     v[None, :3].float())
+    with pytest.raises(ValueError, match="shapes"):
+        bound_matrix.bound_row_ub(q[None], v[None].float(), q[None],
+                                  v[None].float(), v[None, :3])
+    with pytest.raises(ValueError, match="bool"):
+        bound_matrix.bound_row_ub(q[None], v[None].float(), q[None],
+                                  v[None].float(), v[None].float())

@@ -62,11 +62,14 @@ def test_cpu_tensors_take_the_plain_path():
                    levels=((0, 1), (1, 3)))
     ops.nn_distance(q, d, qv, dv)
     ops.bound_matrices(q[None], qv[None].float(), d[None], dv[None].float())
+    ops.bound_row_ub(q[None], qv[None].float(), d[None], dv[None].float(),
+                     dv[None])
     sig = torch.arange(6, dtype=torch.int64).reshape(3, 2)
     ops.set_intersect_counts(sig, sig)
     assert ops.LAUNCHES == {"bound_grid": 0, "hausdorff_grid": 0,
                             "min_sq_dists": 0, "set_intersect": 0,
-                            "nn_distance": 0, "bound_matrices": 0}
+                            "nn_distance": 0, "bound_matrices": 0,
+                            "bound_row_ub": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -91,6 +94,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         bound_matrix.bound_matrices(q[None], v[None].float(), q[None],
                                     v[None].float())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bound_matrix.bound_row_ub(q[None], v[None].float(), q[None],
+                                  v[None].float(), v[None])
     meta = torch.zeros((4, 2), device="meta")
     with pytest.raises(ValueError, match="no kernel or plain path"):
         ops.directed_hausdorff(meta, meta, v, v)
