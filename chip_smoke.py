@@ -13,8 +13,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
   2. the repository build on the card: 10,357 random-walk trajectories of
      100-2,800 points (~15 M points, T-Drive's scale), outlier removal on;
   3. the three ExactHaus kernels against their plain PyTorch versions on the
-     card, at the main path's shapes, bitwise, with CUDA-event times
-     (``hausdorff_grid`` on the first phase-2 chunk, every lane live);
+     card, at the main path's shapes, bitwise, with CUDA-graph times
+     (``hausdorff_grid`` on the first phase-2 chunk, every lane live;
+     ``min_sq_dists`` on the oracle's first chunk of 32 candidates, and
+     on one pair of it);
   4. the ExactHaus path: ``QueryEngine.search`` on 32 held-out
      trajectories, ``Query(op="topk_hausdorff", k=10)``, one warm-up pass,
      which keeps the operands of every ``hausdorff_grid`` launch, then
@@ -25,8 +27,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      output held bitwise against the plain version, beside the least time
      of its live, valid work (``bound_ms_per_search``);
   5. the ExactHaus oracle ``topk_hausdorff_host`` (the third kernel) on 4 of
-     those queries, bitwise against the engine, and a small repository
-     checked against a numpy brute force;
+     those queries, bitwise against the engine, with one ``min_sq_dists``
+     launch per evaluated chunk and no ``hausdorff_grid`` launch (or the
+     phase fails), and a small repository checked against a numpy brute
+     force;
   6. the dataset -> point path on the same repository: one mixed
      ``search()`` batch of 32 queries each of RangeS, top-k IA, top-k GBO
      and ApproHaus, 8 ``Pipeline(topk_hausdorff -> nnp)`` and 8
@@ -39,14 +43,14 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      ``set_intersect`` and ``bound_row_ub`` on the very operands the path
      gave them (bucket padding included), the ``bound_matrices`` matrix
      form, with lb and with ub only, on the same frontiers, and
-     ``nn_distance`` on the first pair the next phase's NNP oracle check
-     gives it;
+     ``nn_distance`` on the 80 pairs the next phase's NNP oracle check
+     gives it, and on one of them;
   8. its gates: RangeS, IA and GBO against a numpy brute force over every
      dataset, RangeP masks against a numpy brute force, ApproHaus bitwise
      against the single-query op and within 2 eps_eff of the exact
      Hausdorff distance, and every pipeline NNP row against the unpruned
-     ``point_search.nnp`` (the ``nn_distance`` kernel, whose launches are
-     read around that check), one pair also against numpy.
+     ``point_search.nnp_batched`` over all 80 pairs (one ``nn_distance``
+     launch, or the phase fails), one pair also against numpy.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -259,6 +263,34 @@ def lanes_work(args, nvalid):
     return n_bytes, {"fp32": pairs * 3 * W + n_rows, "mufu": n_rows}
 
 
+def pairs_work(args, outs, *, roots):
+    """(bytes, operations per pipe) of one pair-axis call, ``min_sq_dists``
+    (q shared, (nq, W)) or ``nn_distance`` ((P, nq, W)): each pair's valid
+    rows times its valid points at 3W FP32 operations (W sub, W mul, W - 1
+    add, 1 min or compare), and with ``roots`` one root per valid row of
+    each pair; the inputs and outputs once."""
+    q, ds, qv, dsv = args
+    W = q.shape[-1]
+    n_rows = qv.sum(dim=-1, dtype=torch.int64).expand(dsv.shape[0])
+    n_pts = dsv.sum(dim=-1, dtype=torch.int64)
+    n_ops = {"fp32": int((n_rows * n_pts).sum()) * 3 * W}
+    if roots:
+        n_ops["mufu"] = int(n_rows.sum())
+    return nbytes(q, ds, qv, dsv, *outs), n_ops
+
+
+def nnp_check_pairs(repo, q_batch, r_nnp):
+    """The (query, winner) pairs of the NNP pipelines as two (P, ...)
+    index batches: pipeline i's query row against each of its winners."""
+    qi = [i for i, r in enumerate(r_nnp) for _ in r.extras["ds_ids"]]
+    wi = [int(w) for r in r_nnp for w in r.extras["ds_ids"]]
+    check(min(wi) >= 0, "NNP pipelines: sentinel winner")
+    dev = q_batch.points.device
+    qi, wi = torch.tensor(qi, device=dev), torch.tensor(wi, device=dev)
+    return (type(q_batch)(*[x[qi] for x in q_batch]),
+            type(q_batch)(*[x[wi] for x in repo.ds_index]))
+
+
 def replay_lanes(calls, nvalid, hausdorff, ops):
     """The ``hausdorff_grid`` row's per-search numbers: the operands of
     every launch of one ExactHaus ``search()`` replayed under CUDA events,
@@ -457,28 +489,29 @@ def new_kernel_rows(repo, q_batch, res2, calls, ref, kernels):
     # pipe, the bound of a kernel that counts there
     rows[-1]["popc32_bound_ms"] = least_ms(0, {"popc32": na * nb * W})[0]
 
-    # NNP oracle: the first pair the gates check, query 0 against the
-    # first winner of its ExactHaus -> NNP pipeline
-    w = int(res2[4 * N_QUERIES].extras["ds_ids"][0])
-    check(w >= 0, "NNP pipeline 0: sentinel first winner")
-    qp, qv = q_batch.points[0], q_batch.valid[0]
-    dp, dv = repo.ds_index.points[w], repo.ds_index.valid[w]
-    got = nn_distance.nn_distance(qp, dp, qv, dv)
-    want = ref.nn_distance(qp, dp, qv, dv)
+    # NNP oracle: the pairs the gates check, every pipeline query against
+    # each of its winners, as ``point_search.nnp_batched`` hands them over
+    q_pairs, d_pairs = nnp_check_pairs(
+        repo, q_batch, res2[4 * N_QUERIES:4 * N_QUERIES + N_PIPELINES])
+    nn_in = (q_pairs.points, d_pairs.points, q_pairs.valid, d_pairs.valid)
+    got = nn_distance.nn_distance_batched(*nn_in)
+    want = ref.nn_distance_batched(*nn_in)
     torch.cuda.synchronize()
-    nq, W = qp.shape
-    rows.append(kernel_row(
+    P, nq, W = q_pairs.points.shape
+    row = kernel_row(
         "nn_distance", "src/repro_torch/csrc/nn_distance.cu",
         "src/repro/kernels/nn_distance.py:21",
-        {"nq": nq, "nd": dp.shape[0], "W": W}, got[0], want[0],
-        kernel_times(lambda: nn_distance.nn_distance(qp, dp, qv, dv), 50),
-        event_ms(lambda: ref.nn_distance(qp, dp, qv, dv), 10),
-        nbytes(qp, dp, qv, dv, *got),
-        # valid (row, point) pairs x (W sub, W mul, W-1 add, 1 compare),
-        # and a root per valid row
-        {"fp32": int(qv.sum()) * int(dv.sum()) * (3 * W),
-         "mufu": int(qv.sum())},
-        also_equal=torch.equal(got[1], want[1])))
+        {"P": P, "nq": nq, "nd": d_pairs.points.shape[1], "W": W},
+        got[0], want[0],
+        kernel_times(lambda: nn_distance.nn_distance_batched(*nn_in), 20),
+        event_ms(lambda: ref.nn_distance_batched(*nn_in), 2, 1),
+        *pairs_work(nn_in, got, roots=True),
+        also_equal=torch.equal(got[1], want[1]))
+    one = tuple(t[:1] for t in nn_in)
+    row["p1_ms"] = graph_ms(lambda: nn_distance.nn_distance_batched(*one), 50)
+    row["p1_bound_ms"] = least_ms(*pairs_work(
+        one, [t[:1] for t in got], roots=True))[0]
+    rows.append(row)
 
     # pruned NNP leaf bounds: the stage-2 group's (query, winner) leaf
     # frontiers, padded to its bucket, and the winners' leaf occupancy
@@ -683,16 +716,21 @@ def dataset_point_gates(repo, res, lo, hi, q_batch, eps, search,
     # random walks pile up where they are clipped to the space's edge) can
     # sit in a leaf that the per-point bound, rounded, prunes.  Both are
     # nearest neighbours; such rows are counted.
+    q_pairs, d_pairs = nnp_check_pairs(repo, q_batch, r_nnp)
     ops.reset_launches()
+    (d_all, x_all), nnp_s = sync_time(
+        lambda: point_search.nnp_batched(q_pairs, d_pairs))
+    nn_launches = ops.LAUNCHES["nn_distance"]
+    check(nn_launches == 1, f"the NNP oracle launched nn_distance "
+          f"{nn_launches} times for {d_all.shape[0]} pairs, not once")
+    d_all, x_all = d_all.cpu().numpy(), x_all.cpu().numpy()
     n_pairs = n_ties = 0
     for i, r in enumerate(r_nnp):
         row = type(q_batch)(*[x[i] for x in q_batch])
         qv = row.valid.cpu().numpy()
         qp = row.points.cpu().numpy()
         for j, w in enumerate(r.extras["ds_ids"]):
-            d, x = point_search.nnp(row, type(q_batch)(
-                *[t[int(w)] for t in repo.ds_index]))
-            d, x = d.cpu().numpy(), x.cpu().numpy()
+            d, x = d_all[n_pairs], x_all[n_pairs]
             check(np.array_equal(r.vals[j].view(np.uint32),
                                  d.view(np.uint32)),
                   f"pipeline nnp {i}, winner {j}: dists not bitwise equal "
@@ -707,8 +745,6 @@ def dataset_point_gates(repo, res, lo, hi, q_batch, eps, search,
                       f"at points that are not tied")
                 n_ties += int(differ.sum())
             n_pairs += 1
-    nn_launches = ops.LAUNCHES["nn_distance"]
-    check(nn_launches > 0, "nn_distance was not launched by the NNP oracle")
     # one pair against numpy
     row = type(q_batch)(*[x[0] for x in q_batch])
     w = int(r_nnp[0].extras["ds_ids"][0])
@@ -723,9 +759,9 @@ def dataset_point_gates(repo, res, lo, hi, q_batch, eps, search,
                              d2[np.arange(len(x)), bi][qv]),
           "pipeline nnp 0: differs from the numpy brute force")
     log(f"gates: {n_pairs} pipeline nnp rows bitwise equal to the unpruned "
-        f"nnp (nn_distance launches {nn_launches}); {n_ties} query points "
-        f"took another of several tied nearest points; one pair equal to "
-        f"numpy")
+        f"nnp_batched (nn_distance launches {nn_launches}, {nnp_s * 1e3:.3f} "
+        f"ms); {n_ties} query points took another of several tied nearest "
+        f"points; one pair equal to numpy")
     return nn_launches
 
 
@@ -846,25 +882,32 @@ def main() -> int:
     rows.append(row)
     log_row(row)
 
-    # one (Q, D) pair at (4096, 4096): query 0 against its first candidate
-    q0, d0, dv0 = qp[0], ds[0, 0], dsv[0, 0]
-    got = hausdorff.min_sq_dists(q0, d0, dv0)
-    want = ref.min_sq_dists(q0, d0, dv0)
+    # the oracle's first chunk: query 0 against its first 32 ascending-LB
+    # candidates, gathered from the corpus as topk_hausdorff_host does
+    ids0 = ids[0][cand[0, ids[0]]]
+    q0, qv0, ds0, dsv0 = qp[0], qv[0], pts[ids0], pv[ids0]
+    msd_in = (q0, ds0, qv0, dsv0)
+    got = hausdorff.min_sq_dists_pairs(*msd_in)
+    want = ref.min_sq_dists_pairs(*msd_in)
     torch.cuda.synchronize()
     row = kernel_row(
         "min_sq_dists", "src/repro_torch/csrc/min_sq_dists.cu",
         "src/repro/kernels/hausdorff.py:34",
-        {"nq": q0.shape[0], "nd": d0.shape[0], "W": q0.shape[1]}, got, want,
-        kernel_times(lambda: hausdorff.min_sq_dists(q0, d0, dv0), 50),
-        event_ms(lambda: ref.min_sq_dists(q0, d0, dv0), 10),
-        nbytes(q0, d0, dv0, got),
-        {"fp32": q0.shape[0] * int(dv0.sum()) * (3 * q0.shape[1])})
+        {"P": ds0.shape[0], "nq": q0.shape[0], "nd": ds0.shape[1],
+         "W": q0.shape[1]}, got, want,
+        kernel_times(lambda: hausdorff.min_sq_dists_pairs(*msd_in), 20),
+        event_ms(lambda: ref.min_sq_dists_pairs(*msd_in), 3, 1),
+        *pairs_work(msd_in, [got], roots=False))
+    # one pair of the chunk, as the single-pair op launches it
+    one = (q0, ds0[:1], qv0, dsv0[:1])
+    row["p1_ms"] = graph_ms(lambda: hausdorff.min_sq_dists_pairs(*one), 50)
+    row["p1_bound_ms"] = least_ms(*pairs_work(one, [got[:1]], roots=False))[0]
     rows.append(row)
     log_row(row)
     for r in rows:
         check(r["bitwise"], f"{r['name']}: kernel differs from its plain "
               f"version (max abs diff {r['max_abs_diff']})")
-    del got, want, ds, dsv, LB, cand, order, lanes_in
+    del got, want, ds, dsv, LB, cand, order, lanes_in, msd_in, one
 
     # ---- 4. the main path: QueryEngine.search ---------------------------
     # warm-up; it keeps the operands of every hausdorff_grid launch
@@ -944,10 +987,15 @@ def main() -> int:
     # ---- 5. the oracle on the card, and a brute-force check -------------
     ops.reset_launches()
     n_check = min(4, N_QUERIES)
+    chunks = 0
+    oracle_s = 0.0
     for i in range(n_check):
         row_i = type(q_batch)(*[x[i] for x in q_batch])
-        vh, ih, sh = search.topk_hausdorff_host(repo, row_i, k,
-                                                refine_levels=3, chunk=32)
+        (vh, ih, sh), secs = sync_time(lambda: search.topk_hausdorff_host(
+            repo, row_i, k, refine_levels=3, chunk=32))
+        oracle_s += secs
+        # chunks are full but for the last one a query evaluates
+        chunks += -(-sh.exact_evaluations // 32)
         vh, ih = vh.cpu().numpy(), ih.cpu().numpy()
         check(np.array_equal(vh.view(np.uint32), res[i].vals.view(np.uint32)),
               f"query {i}: engine vals differ from topk_hausdorff_host")
@@ -956,11 +1004,14 @@ def main() -> int:
         check(sh.exact_evaluations == res[i].stats.exact_evaluations,
               f"query {i}: exact_evaluations differ")
     oracle_launches = ops.LAUNCHES["min_sq_dists"]
-    check(oracle_launches > 0, "min_sq_dists was not launched by the oracle")
+    check(oracle_launches == chunks, f"the oracle launched min_sq_dists "
+          f"{oracle_launches} times for {chunks} evaluated chunks")
+    check(ops.LAUNCHES["hausdorff_grid"] == 0,
+          "the oracle launched phase 2's hausdorff_grid")
     launches["min_sq_dists"] = oracle_launches
     log(f"oracle: {n_check} queries bitwise equal to the engine "
-        f"(vals, ids, exact_evaluations); min_sq_dists launches "
-        f"{oracle_launches}")
+        f"(vals, ids, exact_evaluations) in {oracle_s:.3f} s; min_sq_dists "
+        f"launches {oracle_launches}, one per evaluated chunk")
 
     small = synthetic.trajectory_repository(64, seed=3, n_points=(20, 300))
     srepo, _ = build_repository(small, leaf_capacity=16, theta=5,

@@ -10,7 +10,9 @@ NNP (Def. 12):    the nearest neighbour in D of every point of Q.  The
                   bound over the occupied D leaves (``ops.bound_row_ub``)
                   and scans only the D leaves that can hold a nearest
                   neighbour; ``nnp`` scans all of D
-                  (``ops.nn_distance``) and is the oracle.
+                  (``ops.nn_distance``) and is the oracle, and
+                  ``nnp_batched`` does so for a batch of pairs in one
+                  call (``ops.nn_distance_batched``).
 
 The ``*_core`` functions take a leading batch axis of (query, dataset)
 pairs: the engine's one-dispatch form.
@@ -81,6 +83,15 @@ def nnp(q_idx: DatasetIndex, d_idx: DatasetIndex):
     (dists (nq,), idx (nq,))."""
     return ops.nn_distance(q_idx.points, d_idx.points, q_idx.valid,
                            d_idx.valid)
+
+
+def nnp_batched(q_idx: DatasetIndex, d_idx: DatasetIndex):
+    """``nnp`` for P (query, dataset) pairs, both (P, ...) batches, in one
+    ``ops.nn_distance_batched`` call: (dists (P, nq), idx (P, nq))."""
+    return ops.nn_distance_batched(q_idx.points.contiguous(),
+                                   d_idx.points.contiguous(),
+                                   q_idx.valid.contiguous(),
+                                   d_idx.valid.contiguous())
 
 
 def _leaf_frontier(idx: DatasetIndex):

@@ -338,8 +338,13 @@ def topk_hausdorff(repo: Repository, q_idx: DatasetIndex, k: int, *,
 def topk_hausdorff_host(repo: Repository, q_idx: DatasetIndex, k: int, *,
                         refine_levels: int = 3, chunk: int = 32):
     """ExactHaus with the host-chunked phase 2 (reference semantics): the
-    oracle the batched pipeline is held to.  One host sync per chunk and one
-    ``ops.directed_hausdorff`` call per candidate.
+    oracle the batched pipeline is held to.  Each chunk of candidates is
+    gathered from the corpus and evaluated by one
+    ``ops.directed_hausdorff_pairs`` call (one ``min_sq_dists`` launch on
+    the card), then read back: one host sync per chunk.  It never calls
+    ``ops.directed_hausdorff_lanes`` or any kernel of
+    ``csrc/hausdorff_grid.cu``, so it stays an independent check of phase
+    2's kernel.
     Returns (vals (k,), ids (k,), SearchStats)."""
     S = repo.n_slots
     valid = repo.ds_valid
@@ -367,9 +372,9 @@ def topk_hausdorff_host(repo: Repository, q_idx: DatasetIndex, k: int, *,
             break
         if lb_np[ids[0]] > np.float32(tau_f) * TAU_GUARD:
             break  # everything remaining is pruned (guarded)
-        hs = torch.stack([
-            ops.directed_hausdorff(q_pts, d_pts_all[i], q_val, d_val_all[i])
-            for i in ids.tolist()])
+        ids_t = torch.from_numpy(ids).to(d_pts_all.device)
+        hs = ops.directed_hausdorff_pairs(q_pts, d_pts_all[ids_t], q_val,
+                                          d_val_all[ids_t])
         exact_vals[ids] = hs.cpu().numpy()
         evaluated += int(ids.size)
         finite = exact_vals[exact_vals < BIG / 2]

@@ -36,12 +36,12 @@ KERNELS = {
                    [_P] * 8 + [_I] * 5 + [_P] * 3),
     "hausdorff_grid": ("hausdorff_grid.cu", "hausdorff_lanes_launch",
                        [_P] * 7 + [_I] * 6 + [_P] * 2),
-    "min_sq_dists": ("min_sq_dists.cu", "min_sq_dists_launch",
-                     [_P] * 3 + [_I] * 3 + [_P] * 2),
+    "min_sq_dists": ("min_sq_dists.cu", "min_sq_dists_pairs_launch",
+                     [_P] * 4 + [_I] * 4 + [_P] * 2),
     "set_intersect": ("set_intersect.cu", "set_intersect_launch",
                       [_P] * 2 + [_I] * 3 + [_P] * 2),
-    "nn_distance": ("nn_distance.cu", "nn_distance_launch",
-                    [_P] * 4 + [_I] * 3 + [_P] * 3),
+    "nn_distance": ("nn_distance.cu", "nn_distance_batched_launch",
+                    [_P] * 4 + [_I] * 4 + [_P] * 3),
     "bound_matrices": ("bound_matrices.cu", "bound_matrices_launch",
                        [_P] * 4 + [_I] * 4 + [_P] * 3),
     "bound_row_ub": ("bound_matrices.cu", "bound_row_ub_launch",

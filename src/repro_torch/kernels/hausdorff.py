@@ -1,13 +1,16 @@
 """Wrappers of the two directed-Hausdorff CUDA kernels.
 
-Counterparts of ``repro.kernels.hausdorff``: ``min_sq_dists`` replaces the
-Pallas ``_min_dist_kernel`` (one (Q, D) pair), ``hausdorff_grid`` replaces
-``_min_dist_grid_kernel`` with the epilogue of ``ops.directed_hausdorff_grid``
-fused in: ``hausdorff_lanes`` evaluates the live lanes of an ExactHaus
-phase-2 chunk straight from the resident corpus (one launch per chunk),
-and ``hausdorff_grid`` is the JAX-shaped grid op as one call into it.  The
-kernel wrappers take CUDA tensors only and raise on anything else;
-``repro_torch.kernels.ops`` routes CPU tensors to the plain versions.
+Counterparts of ``repro.kernels.hausdorff``: ``min_sq_dists_pairs``
+replaces the Pallas ``_min_dist_kernel`` with the pair axis the JAX
+oracle's vmap gives it (one query set against P datasets, one launch), and
+``min_sq_dists`` is the JAX-shaped one-pair op as one call into it.
+``hausdorff_grid`` replaces ``_min_dist_grid_kernel`` with the epilogue of
+``ops.directed_hausdorff_grid`` fused in: ``hausdorff_lanes`` evaluates
+the live lanes of an ExactHaus phase-2 chunk straight from the resident
+corpus (one launch per chunk), and ``hausdorff_grid`` is the JAX-shaped
+grid op as one call into it.  The kernel wrappers take CUDA tensors only
+and raise on anything else; ``repro_torch.kernels.ops`` routes CPU tensors
+to the plain versions.
 Sources: ``repro_torch/csrc/``.
 """
 from __future__ import annotations
@@ -21,6 +24,9 @@ MAX_COORDS = 8
 #: csrc/hausdorff_grid.cu); callers round their row count up to it
 ROWS_PER_BLOCK = 256
 MAX_GRID_Y = 65535
+#: query rows one block of the pair kernels covers (kRowsPerBlock in
+#: csrc/min_sq_dists.cu and csrc/nn_distance.cu)
+PAIR_ROWS_PER_BLOCK = 64
 
 
 def check_cuda(name: str, tensors: dict, dtypes: dict) -> torch.device:
@@ -47,27 +53,49 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def min_sq_dists(q: torch.Tensor, d: torch.Tensor,
-                 d_valid: torch.Tensor) -> torch.Tensor:
-    """Per-Q-row min squared distance to any valid D row.
+def min_sq_dists_pairs(q: torch.Tensor, ds: torch.Tensor,
+                       q_valid: torch.Tensor | None,
+                       ds_valid: torch.Tensor) -> torch.Tensor:
+    """Per-row min squared distance of one query set to each of P datasets,
+    one launch.
 
-    q (nq, W), d (nd, W) float32, d_valid (nd,) bool -> (nq,) float32,
-    BIG where D has no valid row."""
+    q (nq, W) float32 and q_valid (nq,) bool, or None where every row is
+    valid; ds (P, nd, W) float32, ds_valid (P, nd) bool -> (P, nq)
+    float32: from BIG (BIG where D_p has no valid point), and BIG on
+    invalid rows, whose work is skipped."""
     f32, b8 = torch.float32, torch.bool
-    dev = check_cuda("min_sq_dists", {"q": q, "d": d, "d_valid": d_valid},
-                     {"q": f32, "d": f32, "d_valid": b8})
+    tensors = {"q": q, "ds": ds, "ds_valid": ds_valid}
+    dtypes = {"q": f32, "ds": f32, "ds_valid": b8, "q_valid": b8}
+    if q_valid is not None:
+        tensors["q_valid"] = q_valid
+    dev = check_cuda("min_sq_dists", tensors, dtypes)
     nq, W = q.shape
-    nd = d.shape[0]
-    if d.shape != (nd, W) or d_valid.shape != (nd,) or not 1 <= W <= MAX_COORDS:
-        raise ValueError(f"min_sq_dists: shapes q {tuple(q.shape)}, "
-                         f"d {tuple(d.shape)}, d_valid {tuple(d_valid.shape)}")
-    out = torch.empty((nq,), dtype=f32, device=dev)
+    P, nd = ds_valid.shape
+    if (ds.shape != (P, nd, W)
+            or (q_valid is not None and q_valid.shape != (nq,))
+            or not 1 <= W <= MAX_COORDS or min(P, nq, nd) < 1
+            or nq > MAX_GRID_Y * PAIR_ROWS_PER_BLOCK):
+        raise ValueError(
+            f"min_sq_dists: shapes q {tuple(q.shape)}, ds {tuple(ds.shape)}"
+            f", q_valid {None if q_valid is None else tuple(q_valid.shape)}"
+            f", ds_valid {tuple(ds_valid.shape)}")
+    out = torch.empty((P, nq), dtype=f32, device=dev)
     fn = _build.kernel("min_sq_dists")
     with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), d.data_ptr(), d_valid.data_ptr(), nq, nd, W,
+        rc = fn(q.data_ptr(), 0 if q_valid is None else q_valid.data_ptr(),
+                ds.data_ptr(), ds_valid.data_ptr(), P, nq, nd, W,
                 out.data_ptr(), _stream(dev))
     _build.launched("min_sq_dists", rc)
     return out
+
+
+def min_sq_dists(q: torch.Tensor, d: torch.Tensor,
+                 d_valid: torch.Tensor) -> torch.Tensor:
+    """Per-Q-row min squared distance to any valid D row: q (nq, W), d
+    (nd, W) float32, d_valid (nd,) bool -> (nq,) float32, BIG where D has
+    no valid row.  The JAX package's signature; one pair of
+    ``min_sq_dists_pairs``."""
+    return min_sq_dists_pairs(q, d[None], None, d_valid[None])[0]
 
 
 def compact_rows(q: torch.Tensor, q_valid: torch.Tensor):

@@ -2,9 +2,11 @@
 version for a CPU tensor.
 
 Counterpart of ``repro.kernels.ops``, one op for each of the six kernels,
-and two for ``hausdorff_grid`` (the JAX package's grid op and phase 2's
-lane op) and for ``bound_matrices`` (the JAX package's matrix op and the
-pruned NNP's ``bound_row_ub``, its masked row min fused in).  There is no
+and two for ``min_sq_dists`` and ``nn_distance`` (the JAX package's
+one-pair ops and their pair axis, one launch for a chunk of pairs), for
+``hausdorff_grid`` (the JAX package's grid op and phase 2's lane op) and
+for ``bound_matrices`` (the JAX package's matrix op and the pruned NNP's
+``bound_row_ub``, its masked row min fused in).  There is no
 size-based routing and no autotune table: a CUDA tensor always launches
 the kernel (or raises), a CPU tensor always takes the plain version, and
 the two are bitwise equal.  ``LAUNCHES[name]`` counts kernel
@@ -36,13 +38,24 @@ def _route(name: str, t: torch.Tensor) -> bool:
 
 
 def directed_hausdorff(q, d, q_valid, d_valid) -> torch.Tensor:
-    """H(Q -> D), masked; a 0-dim float32 tensor."""
-    if not _route("directed_hausdorff", q):
-        return ref.directed_hausdorff(q, d, q_valid, d_valid)
-    mins = hausdorff.min_sq_dists(q, d, d_valid)
-    nnd = ref.ieee_sqrt(torch.clamp_max(mins, BIG))
-    nnd = torch.where(q_valid, nnd, -BIG)
-    return torch.amax(nnd)
+    """H(Q -> D), masked; a 0-dim float32 tensor: one pair of
+    ``directed_hausdorff_pairs``."""
+    return directed_hausdorff_pairs(q, d[None], q_valid, d_valid[None])[0]
+
+
+def directed_hausdorff_pairs(q, ds, q_valid, ds_valid) -> torch.Tensor:
+    """H(Q -> D_p) for one query set q (nq, W) / q_valid (nq,) against P
+    datasets ds (P, nd, W) / ds_valid (P, nd): (P,) float32, -BIG where Q
+    has no valid row.  The counterpart of the JAX oracle's
+    ``vmap(lambda dp, dv: directed_hausdorff(q, dp, q_valid, dv))``; one
+    ``min_sq_dists`` launch on the card, the root, row mask and max in
+    torch."""
+    if _route("directed_hausdorff_pairs", q):
+        mins = hausdorff.min_sq_dists_pairs(q, ds, q_valid, ds_valid)
+    else:
+        mins = ref.min_sq_dists_pairs(q, ds, q_valid, ds_valid)
+    nnd = torch.where(q_valid, ref.ieee_sqrt(mins), -BIG)
+    return torch.amax(nnd, dim=-1)
 
 
 def directed_hausdorff_grid_plain(q, ds, q_valid, ds_valid) -> torch.Tensor:
@@ -122,10 +135,21 @@ def set_intersect_counts(sa: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
 
 
 def nn_distance(q, d, q_valid, d_valid):
-    """Per-Q-point NN distance and D index: (dists (nq,), idx (nq,))."""
-    if not _route("nn_distance", q):
-        return ref.nn_distance(q, d, q_valid, d_valid)
-    return nn_distance_kernel.nn_distance(q, d, q_valid, d_valid)
+    """Per-Q-point NN distance and D index: (dists (nq,), idx (nq,)), one
+    pair of ``nn_distance_batched``."""
+    dist, idx = nn_distance_batched(q[None], d[None], q_valid[None],
+                                    d_valid[None])
+    return dist[0], idx[0]
+
+
+def nn_distance_batched(qs, ds, qs_valid, ds_valid):
+    """Per-point NN for P (query, dataset) pairs: qs (P, nq, W), ds
+    (P, nd, W), qs_valid (P, nq), ds_valid (P, nd) -> (dists (P, nq),
+    idx (P, nq) int32).  The counterpart of
+    ``repro.kernels.ops.nn_distance_batched``; one launch on the card."""
+    if not _route("nn_distance_batched", qs):
+        return ref.nn_distance_batched(qs, ds, qs_valid, ds_valid)
+    return nn_distance_kernel.nn_distance_batched(qs, ds, qs_valid, ds_valid)
 
 
 def bound_matrices(oq, rq, od, rd, *, with_lb=True):

@@ -16,6 +16,10 @@ import torch
 #: float that float32 represents exactly
 BIG = float(np.float32(3.4e38))
 
+#: elements of the largest (pairs, nq, nd) distance block a plain pair
+#: version materialises at once
+PAIR_BLOCK = 1 << 26
+
 
 def ieee_sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root, as the kernels' ``sqrtf``.
@@ -46,16 +50,40 @@ def unrolled_sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def masked_sq_dists(q: torch.Tensor, d: torch.Tensor,
                     d_valid: torch.Tensor) -> torch.Tensor:
-    """(nq, nd) squared distances with invalid D columns masked to BIG."""
-    d2 = unrolled_sq_dists(q[:, None, :], d[None, :, :])
-    return torch.where(d_valid[None, :], d2, BIG)
+    """(..., nq, nd) squared distances with invalid D columns masked to BIG:
+    q (..., nq, W) against d (..., nd, W) / d_valid (..., nd), the leading
+    axes broadcast (a batch of pairs, or one query set against many D)."""
+    d2 = unrolled_sq_dists(q[..., :, None, :], d[..., None, :, :])
+    return torch.where(d_valid[..., None, :], d2, BIG)
 
 
 def min_sq_dists(q: torch.Tensor, d: torch.Tensor,
                  d_valid: torch.Tensor) -> torch.Tensor:
-    """(nq,) per-row min squared distance to a valid D row (BIG if none):
-    the plain version of the ``min_sq_dists`` kernel."""
-    return torch.amin(masked_sq_dists(q, d, d_valid), dim=1)
+    """(..., nq) per-row min squared distance to a valid D row, from BIG
+    (so BIG where there is none, or where every square overflowed past
+    it): the plain version of the ``min_sq_dists`` kernel."""
+    return torch.clamp_max(torch.amin(masked_sq_dists(q, d, d_valid), dim=-1),
+                           BIG)
+
+
+def _pair_blocks(P: int, n: int):
+    """Slices of the pair axis that keep a plain version's (pairs, nq, nd)
+    intermediates to about ``PAIR_BLOCK`` elements (n = nq * nd); pairs
+    are independent, so the blocking changes no bit."""
+    step = max(1, PAIR_BLOCK // max(n, 1))
+    return [slice(p0, p0 + step) for p0 in range(0, P, step)]
+
+
+def min_sq_dists_pairs(q: torch.Tensor, ds: torch.Tensor,
+                       q_valid: torch.Tensor,
+                       ds_valid: torch.Tensor) -> torch.Tensor:
+    """(P, nq) ``min_sq_dists`` of one query set q (nq, W) against each of
+    P datasets ds (P, nd, W) / ds_valid (P, nd), BIG on the rows that
+    q_valid (nq,) masks: the plain version of the pair-axis kernel."""
+    mins = torch.cat([min_sq_dists(q, ds[s], ds_valid[s])
+                      for s in _pair_blocks(ds.shape[0],
+                                            q.shape[0] * ds.shape[1])])
+    return torch.where(q_valid, mins, BIG)
 
 
 def directed_hausdorff(q: torch.Tensor, d: torch.Tensor,
@@ -105,16 +133,29 @@ def frontier_bound_levels(oq, rq, q_ok, od, rd, d_ok, levels):
 
 def nn_distance(q: torch.Tensor, d: torch.Tensor, q_valid: torch.Tensor,
                 d_valid: torch.Tensor):
-    """Per-Q-point nearest neighbour in D: (dists (nq,) float32, idx (nq,)
-    int32).  ``torch.argmin`` returns the first index on ties, as
+    """Per-Q-point nearest neighbour in D: q (..., nq, W), d (..., nd, W),
+    q_valid (..., nq), d_valid (..., nd) -> (dists (..., nq) float32, idx
+    (..., nq) int32).  ``torch.argmin`` returns the first index on ties, as
     ``jnp.argmin`` does; invalid Q rows get distance 0.0 and index -1.
     The plain version of the ``nn_distance`` kernel."""
     d2 = masked_sq_dists(q, d, d_valid)
-    idx = torch.argmin(d2, dim=1).to(torch.int32)
-    dist = ieee_sqrt(torch.amin(d2, dim=1))
+    idx = torch.argmin(d2, dim=-1).to(torch.int32)
+    dist = ieee_sqrt(torch.amin(d2, dim=-1))
     dist = torch.where(q_valid, dist, 0.0)
     idx = torch.where(q_valid, idx, -1)
     return dist, idx
+
+
+def nn_distance_batched(qs: torch.Tensor, ds: torch.Tensor,
+                        qs_valid: torch.Tensor, ds_valid: torch.Tensor):
+    """``nn_distance`` for P (query, dataset) pairs: qs (P, nq, W), ds
+    (P, nd, W), qs_valid (P, nq), ds_valid (P, nd) -> (dists (P, nq), idx
+    (P, nq)), a block of pairs at a time.  The plain version of the
+    ``nn_distance`` kernel's pair axis."""
+    parts = [nn_distance(qs[s], ds[s], qs_valid[s], ds_valid[s])
+             for s in _pair_blocks(qs.shape[0], qs.shape[1] * ds.shape[1])]
+    return (torch.cat([d for d, _ in parts]),
+            torch.cat([i for _, i in parts]))
 
 
 def bound_matrix(oq: torch.Tensor, rq: torch.Tensor, od: torch.Tensor,

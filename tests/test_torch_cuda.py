@@ -238,6 +238,139 @@ def test_nn_distance_all_invalid(cuda_device):
     assert torch.all(got[1][qv] == 0)
 
 
+def _pair_inputs(rng, dev, P, nq, nd, W, shared_q=False):
+    """Query rows (one set shared by every pair, or one set per pair) with
+    a random mask; P datasets whose valid points form a ragged prefix with
+    holes, the last of them with no valid point where P >= 3; tied points
+    at indices 0, 1 and nd // 2; masked points and rows hold inf."""
+    q = _pts(rng, (nq, W) if shared_q else (P, nq, W), dev)
+    qv = _mask(rng, q.shape[:-1], dev, p=0.7)
+    ds = _pts(rng, (P, nd, W), dev)
+    n_valid = rng.integers(1, nd + 1, P)
+    dv = np.arange(nd)[None, :] < n_valid[:, None]
+    dv &= rng.random((P, nd)) > 0.1
+    dv[:, :2] = True
+    if P >= 3:
+        dv[-1] = False
+    dv = torch.from_numpy(dv).to(dev)
+    ds[:, 1:2] = ds[:, :1]
+    ds[:, nd // 2] = ds[:, 0]
+    ds[~dv] = float("inf")
+    q[~qv] = float("inf")
+    return q, qv, ds, dv
+
+
+def _check_min_pairs(q, qv, ds, dv):
+    """The pair kernel against its plain version, and the Hausdorff op on
+    the card against the same op on the CPU."""
+    ops.reset_launches()
+    got = hausdorff.min_sq_dists_pairs(q, ds, qv, dv)
+    assert ops.LAUNCHES["min_sq_dists"] == 1
+    assert got.shape == (ds.shape[0], q.shape[0])
+    assert _bits_equal(got, ref.min_sq_dists_pairs(q, ds, qv, dv))
+    ops.reset_launches()
+    h = ops.directed_hausdorff_pairs(q, ds, qv, dv)
+    assert ops.LAUNCHES["min_sq_dists"] == 1
+    assert _bits_equal(h, ops.directed_hausdorff_pairs(
+        q.cpu(), ds.cpu(), qv.cpu(), dv.cpu()).to(h.device))
+    return got, h
+
+
+def _check_nn_pairs(qs, qsv, ds, dv):
+    ops.reset_launches()
+    got = nn_distance.nn_distance_batched(qs, ds, qsv, dv)
+    assert ops.LAUNCHES["nn_distance"] == 1
+    want = ref.nn_distance_batched(qs, ds, qsv, dv)
+    assert _bits_equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    return got
+
+
+_PAIR_SHAPES = [(1, 1, 1, 2), (1, 300, 257, 2), (5, 37, 130, 2),
+                (4, 129, 700, 3), (3, 200, 513, 1), (3, 65, 33, 4),
+                (3, 65, 33, 5), (3, 65, 33, 6), (3, 65, 33, 7),
+                (3, 65, 33, 8), (33, 130, 600, 2)]
+
+
+@pytest.mark.parametrize("P,nq,nd,W", _PAIR_SHAPES)
+def test_min_sq_dists_pairs(cuda_device, P, nq, nd, W):
+    """P = 1 and P > 1, nq and nd off the 128-row and 256-point tiles, nd
+    past one tile, W = 1..8, a pair with no valid point, ties, inf in
+    masked points and rows."""
+    rng = np.random.default_rng(P * nq + nd + W + 3)
+    q, qv, ds, dv = _pair_inputs(rng, cuda_device, P, nq, nd, W,
+                                 shared_q=True)
+    got, h = _check_min_pairs(q, qv, ds, dv)
+    if P >= 3:
+        assert torch.all(got[-1] == ref.BIG)
+    # a one-pair call equals that pair of the batch
+    ops.reset_launches()
+    assert _bits_equal(ops.directed_hausdorff(q, ds[0], qv, dv[0]), h[0])
+    assert ops.LAUNCHES["min_sq_dists"] == 1
+
+
+def test_min_sq_dists_pairs_no_valid_row(cuda_device):
+    """A query set with no valid row: BIG rows and -BIG distances."""
+    rng = np.random.default_rng(5)
+    q, qv, ds, dv = _pair_inputs(rng, cuda_device, 4, 300, 400, 2,
+                                 shared_q=True)
+    qv[:] = False
+    got, h = _check_min_pairs(q, qv, ds, dv)
+    assert torch.all(got == ref.BIG) and torch.all(h == -ref.BIG)
+
+
+@pytest.mark.parametrize("P,nq,nd,W", _PAIR_SHAPES)
+def test_nn_distance_batched(cuda_device, P, nq, nd, W):
+    """As ``test_min_sq_dists_pairs``, with a query set per pair, one of
+    which has no valid row; tied points: the first index wins."""
+    rng = np.random.default_rng(P * nq + nd + W + 4)
+    qs, qsv, ds, dv = _pair_inputs(rng, cuda_device, P, nq, nd, W)
+    if P >= 3:
+        qsv[-2] = False
+    dist, idx = _check_nn_pairs(qs, qsv, ds, dv)
+    if P >= 3:
+        assert torch.all(idx[-2] == -1) and torch.all(dist[-2] == 0)
+        # no valid point: BIG's root at index 0
+        assert torch.all(idx[-1][qsv[-1]] == 0)
+    assert not torch.any(idx[qsv] == 1)        # 0 comes first, 1 ties it
+    ops.reset_launches()
+    one = ops.nn_distance(qs[0], ds[0], qsv[0], dv[0])
+    assert ops.LAUNCHES["nn_distance"] == 1
+    assert _bits_equal(one[0], dist[0]) and torch.equal(one[1], idx[0])
+
+
+@pytest.mark.parametrize("W", [1, 2])
+def test_pair_kernels_overflow(cuda_device, W):
+    """Squares near and past BIG (coordinates near 1e19): pair 0 has every
+    point valid and, for W = 2, every distance infinite (NN: infinity at
+    the first valid index); pair 1 the same with holes (NN: BIG at the
+    first invalid index); pair 2 some points near the queries; pair 3 no
+    valid point.  Masked points hold inf."""
+    rng = np.random.default_rng(40 + W)
+    P, nq, nd = 4, 70, 300
+    dev = cuda_device
+    qs = torch.from_numpy(-rng.uniform(0.8e19, 1e19, (P, nq, W))
+                          .astype(np.float32)).to(dev)
+    ds = torch.from_numpy(rng.uniform(0.8e19, 1e19, (P, nd, W))
+                          .astype(np.float32)).to(dev)
+    ds[2, 100:110] = qs[2, :10] + 1.0
+    qsv = torch.ones((P, nq), dtype=torch.bool, device=dev)
+    qsv[:, -3:] = False
+    dv = torch.ones((P, nd), dtype=torch.bool, device=dev)
+    dv[1, 7::5] = False
+    dv[2, 200:] = False
+    dv[3] = False
+    ds[~dv] = float("inf")
+    dist, idx = _check_nn_pairs(qs, qsv, ds, dv)
+    if W == 2:
+        assert torch.all(idx[0][qsv[0]] == 0)
+        assert torch.all(torch.isinf(dist[0][qsv[0]]))
+        assert torch.all(idx[1][qsv[1]] == 7)
+    assert torch.all(idx[3][qsv[3]] == 0)
+    _check_min_pairs(qs[2], qsv[2], ds, dv)
+    _check_min_pairs(qs[0], qsv[0], ds, dv)
+
+
 @pytest.mark.parametrize("P,nq,nd,W", [(1, 1, 1, 2), (3, 16, 130, 2),
                                        (5, 256, 256, 2), (2, 33, 300, 3)])
 def test_bound_matrices(cuda_device, P, nq, nd, W):
@@ -358,6 +491,11 @@ def test_kernel_refuses_bad_input(cuda_device):
                                   i32[None].long(), v[None, :1])
     with pytest.raises(ValueError, match="shapes"):
         nn_distance.nn_distance(q, q, v[:3], v)
+    with pytest.raises(ValueError, match="shapes"):
+        hausdorff.min_sq_dists_pairs(q, q[None], v[:3], v[None])
+    with pytest.raises(ValueError, match="shapes"):
+        nn_distance.nn_distance_batched(q[None], q[None, :3], v[None],
+                                        v[None])
     with pytest.raises(ValueError, match="shapes"):
         bound_matrix.bound_matrices(q[None], v[None].float(), q[None],
                                     v[None, :3].float())

@@ -61,6 +61,9 @@ def test_cpu_tensors_take_the_plain_path():
     ops.bound_grid(q[None, :3], n.float(), n, d[None, :3], n.float(), n,
                    levels=((0, 1), (1, 3)))
     ops.nn_distance(q, d, qv, dv)
+    ops.directed_hausdorff_pairs(q, d[None].expand(3, -1, -1), qv,
+                                 dv[None].expand(3, -1))
+    ops.nn_distance_batched(q[None], d[None], qv[None], dv[None])
     ops.bound_matrices(q[None], qv[None].float(), d[None], dv[None].float())
     ops.bound_row_ub(q[None], qv[None].float(), d[None], dv[None].float(),
                      dv[None])
@@ -91,6 +94,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         set_intersect.intersect_counts(v[None].long(), v[None].long())
     with pytest.raises(ValueError, match="CUDA tensor"):
         nn_distance.nn_distance(q, q, v, v)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        hausdorff.min_sq_dists_pairs(q, q[None], v, v[None])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        nn_distance.nn_distance_batched(q[None], q[None], v[None], v[None])
     with pytest.raises(ValueError, match="CUDA tensor"):
         bound_matrix.bound_matrices(q[None], v[None].float(), q[None],
                                     v[None].float())
