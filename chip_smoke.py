@@ -50,7 +50,29 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      against the single-query op and within 2 eps_eff of the exact
      Hausdorff distance, and every pipeline NNP row against the unpruned
      ``point_search.nnp_batched`` over all 80 pairs (one ``nn_distance``
-     launch, or the phase fails), one pair also against numpy.
+     launch, or the phase fails), one pair also against numpy;
+  9. the join batch on the same repository: one ``search()`` of 32
+     queries each of ``topk_overlap`` and ``topk_coverage`` (k = 10), 8
+     ``Pipeline(topk_ia -> topk_overlap)``, 8 ``Pipeline(topk_hausdorff ->
+     topk_coverage)`` and 8 ``Pipeline(topk_gbo -> range_points)``; a
+     warm-up pass that keeps every ``set_intersect`` call's operands, a
+     pass with the launch counters read around it, two more timed passes
+     (latency: the median of the 3) and one under the profiler (idle
+     share); its gates: every joinable query equal to a vectorised numpy
+     brute force over every dataset at the fine grid, two of each mode
+     also to ``topk_join_host``, each dataset -> dataset pipeline to its
+     host re-rank, the GBO pipelines to the mixed batch's;
+ 10. ``set_intersect`` at each shape the join batch launched it (the slot
+     bounds, the upper tree's node bounds, the refine chunks of each
+     mode, and the GBO group), every kept call bitwise against the plain
+     version, the first of each kind replayed in a CUDA graph and all of
+     a kind together (``ms_per_search``);
+ 11. serving: ``SearchServer`` over the same engine, a warm-up burst and
+     a measured burst of ``make_traffic(repo, datasets, 256, seed=0)`` at
+     max_batch 64 (QPS, p50/p99, requests per dispatch group), every
+     future resolved within a timeout and each response bitwise equal to
+     ``engine.search`` of its item (a joinable query's counters depend on
+     the batch it shared, so there its vals and ids).
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -97,6 +119,10 @@ N_QUERIES = 32
 N_PIPELINES = 8
 K = 10
 THETA = 5
+# the join batch's re-rank stages keep this many of their K winners
+K2 = 5
+# the serving phase's requests
+N_REQUESTS = 256
 
 
 class SmokeFailure(RuntimeError):
@@ -765,6 +791,296 @@ def dataset_point_gates(repo, res, lo, hi, q_batch, eps, search,
     return nn_launches
 
 
+def join_items(q_sets, q_sigs_np, lo, hi, Query, Pipeline):
+    """Phase 9's batch: 32 queries each of top-k overlap and coverage (the
+    32 query sets, k = 10), 8 ``Pipeline(topk_ia -> topk_overlap)``, 8
+    ``Pipeline(topk_hausdorff -> topk_coverage)`` and 8
+    ``Pipeline(topk_gbo -> range_points)``, the re-rank stages keeping
+    ``K2`` of their 10 winners."""
+    P = N_PIPELINES
+    return (
+        [Query(op="topk_overlap", q=q_sets[i], k=K) for i in range(N_QUERIES)]
+        + [Query(op="topk_coverage", q=q_sets[i], k=K)
+           for i in range(N_QUERIES)]
+        + [Pipeline(Query(op="topk_ia", r_lo=lo[i], r_hi=hi[i], k=K),
+                    Query(op="topk_overlap", q=q_sets[i], k=K2))
+           for i in range(P)]
+        + [Pipeline(Query(op="topk_hausdorff", q=q_sets[i], k=K,
+                          refine_levels=3, chunk=32),
+                    Query(op="topk_coverage", q=q_sets[i], k=K2))
+           for i in range(P)]
+        + [Pipeline(Query(op="topk_gbo", q_sig=q_sigs_np[i], k=K),
+                    Query(op="range_points", r_lo=lo[i], r_hi=hi[i]))
+           for i in range(P)])
+
+
+def join_call_kind(args, repo, B, n_planes):
+    """Which join-path launch a ``set_intersect`` call is, from its shape:
+    the slot bounds (overlap: B rows, coverage: B * P), the upper tree's
+    node bounds, a refine chunk (fine words), or the GBO group's."""
+    sa, sb = args
+    na, W = sa.shape
+    mode = {B: "overlap", B * n_planes: "coverage"}.get(na)
+    if sb.shape[0] == repo.n_slots and W == repo.ds_sigs.shape[1]:
+        return f"{mode}_bound" if mode else "gbo"
+    if sb.shape[0] == repo.repo.sigs.shape[0]:
+        return f"{mode}_nodes"
+    return f"{mode}_refine"
+
+
+def join_path(engine, items, reps, ops, set_intersect):
+    """Phase 9: the join batch through ``search()``: a warm-up pass that
+    keeps every ``set_intersect`` call's operands, a pass with the launch
+    counters read around it, two more timed passes, and one under the
+    profiler.  Returns (results, summary, launches, calls)."""
+    with keep_operands([(set_intersect, "intersect_counts")]) as calls:
+        res, warm_s = sync_time(lambda: engine.search(items))
+    torch.cuda.reset_peak_memory_stats()
+    secs0 = dict(engine.stats.op_seconds)
+    ops.reset_launches()
+    res, first_s = sync_time(lambda: engine.search(items))
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    times = [first_s]
+    for _ in range(reps - 1):
+        again, t = sync_time(lambda: engine.search(items))
+        times.append(t)
+        for a, b in zip(res, again):
+            for f in ("vals", "ids", "mask"):
+                x, y = getattr(a, f), getattr(b, f)
+                check((x is None and y is None) or (
+                    x.shape == y.shape and x.tobytes() == y.tobytes()),
+                    "join batch: repeat pass differs")
+    check(len(calls["intersect_counts"]) == launches["set_intersect"],
+          f"join batch: the warm-up made {len(calls['intersect_counts'])} "
+          f"set_intersect calls, the counted pass "
+          f"{launches['set_intersect']} launches")
+    summary = {
+        "items": len(items), "warmup_s": warm_s,
+        "batch_latency_median_s": float(np.median(times)),
+        "batch_latency_all_s": times,
+        "group_latency_s": {
+            op: (engine.stats.op_seconds[op] - secs0.get(op, 0.0)) / reps
+            for op in engine.stats.op_seconds
+            if engine.stats.op_seconds[op] > secs0.get(op, 0.0)},
+        "max_memory_allocated": peak,
+        "launches_per_search": launches,
+    }
+    per_name, busy_ms, wall_ms = device_profile(lambda: engine.search(items))
+    if per_name:
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+        summary.update({
+            "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "set_intersect_device_ms": device_ms(per_name, "set_intersect"),
+            "top_device_ms": [(e[:100], t) for e, t in top]})
+    else:
+        summary["device_profile"] = "not measured (no device work seen)"
+    return res, summary, launches, calls["intersect_counts"]
+
+
+def join_kernel_rows(calls, repo, B, n_planes, set_intersect, ref):
+    """Phase 10: ``set_intersect`` at each shape the join batch launched it,
+    on the operands the path handed it.  Every kept call is held bitwise
+    against the plain version (in row blocks: one call's (na, nb, W) int64
+    temporary is gigabytes at the coverage bound's shape); the first call
+    of each kind is replayed in a CUDA graph, and all calls of a kind
+    together (``ms_per_search``)."""
+    def plain(sa, sb, rows=64):
+        return torch.cat([ref.set_intersect_count(sa[i:i + rows], sb)
+                          for i in range(0, sa.shape[0], rows)])
+
+    kinds = {}
+    for args in calls:
+        kinds.setdefault(join_call_kind(args, repo, B, n_planes),
+                         []).append(args)
+    rows = []
+    for kind in ("overlap_bound", "coverage_bound", "overlap_nodes",
+                 "coverage_nodes", "overlap_refine", "coverage_refine",
+                 "gbo"):
+        check(kind in kinds, f"the join batch launched no set_intersect "
+              f"for {kind}")
+        group = kinds[kind]
+        for i, (sa, sb) in enumerate(group):
+            check(torch.equal(set_intersect.intersect_counts(sa, sb),
+                              plain(sa, sb)),
+                  f"set_intersect {kind}: call {i} of {len(group)} differs "
+                  f"from its plain version")
+        sa, sb = group[0]
+        got = set_intersect.intersect_counts(sa, sb)
+        want = plain(sa, sb)
+        torch.cuda.synchronize()
+        na, W = sa.shape
+        nb = sb.shape[0]
+        row = kernel_row(
+            f"set_intersect:{kind}", "src/repro_torch/csrc/set_intersect.cu",
+            "src/repro/kernels/set_intersect.py:19",
+            {"na": na, "nb": nb, "W": W}, got, want,
+            kernel_times(lambda: set_intersect.intersect_counts(sa, sb), 20),
+            event_ms(lambda: plain(sa, sb), 3, 1), nbytes(sa, sb, got), {})
+        row["popc32_bound_ms"] = least_ms(0, {"popc32": na * nb * W})[0]
+        row["launches"] = len(group)
+        row["ms_per_search"] = graph_ms(lambda: [
+            set_intersect.intersect_counts(*a) for a in group], 1)
+        row["bound_ms_per_search"] = sum(
+            least_ms(nbytes(a, b) + a.shape[0] * b.shape[0] * 4, {})[0]
+            for a, b in group)
+        rows.append(row)
+        log_row(row)
+        log(f"  {kind}: {len(group)} launches per search, "
+            f"{row['ms_per_search']:.5f} ms per search (bound "
+            f"{row['bound_ms_per_search']:.6f})")
+    for r in rows:
+        check(r["bitwise"], f"{r['name']}: kernel differs from its plain "
+              f"version")
+    return rows
+
+
+def join_gates(repo, res, q_sets, lo, hi, res_exact, res_mixed, join_search):
+    """Phase 9's gates: every joinable query's vals and ids equal a
+    vectorised numpy brute force over every dataset at the fine grid, two
+    queries of each mode also ``topk_join_host``; each dataset -> dataset
+    pipeline equals its host re-rank of stage-1 winners that equal the
+    brute force (IA) or the ExactHaus path (Hausdorff); the GBO pipelines
+    equal the mixed batch's."""
+    n, Q, P = N_DATASETS, N_QUERIES, N_PIPELINES
+    _, theta_f = join_search.join_thetas(repo)
+    g_lo = repo.space_lo.cpu().numpy()
+    g_hi = repo.space_hi.cpu().numpy()
+    pts = repo.ds_index.points[:n].cpu().numpy()
+    val = repo.ds_index.valid[:n].cpu().numpy()
+    occ_d = np_occupancy(pts, val, g_lo, g_hi, theta_f).astype(np.float32)
+    hist_q = np.stack([np.bincount(np_cells(q, g_lo, g_hi, theta_f),
+                                   minlength=occ_d.shape[1]) for q in q_sets])
+    # exact below 2**24 in float32
+    full = {"overlap": ((hist_q > 0).astype(np.float32) @ occ_d.T),
+            "coverage": hist_q.astype(np.float32) @ occ_d.T}
+    scores = {}
+    for mode, f in full.items():
+        s = np.full((Q, repo.n_slots), -1, np.int64)
+        s[:, :n] = f.astype(np.int64)
+        scores[mode] = s
+    r_ov, r_cv = res[:Q], res[Q:2 * Q]
+    r_p_ov = res[2 * Q:2 * Q + P]
+    r_p_cv = res[2 * Q + P:2 * Q + 2 * P]
+    r_p_rp = res[2 * Q + 2 * P:]
+    for mode, rs in (("overlap", r_ov), ("coverage", r_cv)):
+        bv, bi = np_topk_desc(scores[mode], K)
+        for i, r in enumerate(rs):
+            check(np.array_equal(r.vals, bv[i]) and np.array_equal(r.ids, bi[i]),
+                  f"topk_{mode} {i}: differs from the numpy brute force")
+            check(r.stats.exact_evaluations > 0, f"topk_{mode} {i}: stats")
+        hv, hi_ = join_search.topk_join_host(repo, q_sets[:2], K, mode)
+        for i in range(2):
+            check(np.array_equal(hv[i], rs[i].vals)
+                  and np.array_equal(hi_[i], rs[i].ids),
+                  f"topk_{mode} {i}: differs from topk_join_host")
+    log(f"gates: topk_overlap, topk_coverage ({Q} queries each) equal to the "
+        f"numpy brute force over {n} datasets at theta {theta_f}; 2 of each "
+        f"equal to topk_join_host")
+
+    # stage 1 of the IA pipelines: the IA brute force
+    lo_d = np.where(val[..., None], pts, np.float32(np.inf)).min(axis=1)
+    hi_d = np.where(val[..., None], pts, np.float32(-np.inf)).max(axis=1)
+    ln = (np.minimum(hi_d[None], hi[:P, None])
+          - np.maximum(lo_d[None], lo[:P, None]))
+    ln = np.maximum(ln, np.float32(0))
+    ia_v, ia_i = np_topk_desc(ln[..., 0] * ln[..., 1], K)
+    for i in range(P):
+        for mode, r, s1v, s1i in (
+                ("overlap", r_p_ov[i], ia_v[i], ia_i[i]),
+                ("coverage", r_p_cv[i], res_exact[i].vals, res_exact[i].ids)):
+            s1 = r.extras["stage1"]
+            check(np.array_equal(s1.vals.view(np.uint32), s1v.view(np.uint32))
+                  and np.array_equal(s1.ids, s1i),
+                  f"pipeline -> {mode} {i}: stage 1 differs")
+            ids1 = np.asarray(r.extras["ds_ids"])
+            sc = scores[mode][i, ids1]
+            order = np.argsort(-sc, kind="stable")[:K2]
+            check(np.array_equal(r.vals, sc[order])
+                  and np.array_equal(r.ids, ids1[order])
+                  and r.mask.all(),
+                  f"pipeline -> {mode} {i}: differs from its host re-rank")
+    mixed_rp = res_mixed[4 * Q + P:]
+    for i, (a, b) in enumerate(zip(r_p_rp, mixed_rp)):
+        check(np.array_equal(a.mask, b.mask)
+              and np.array_equal(a.extras["ds_ids"], b.extras["ds_ids"]),
+              f"pipeline gbo {i}: differs from the mixed batch's")
+    log(f"gates: {P} pipelines each of IA -> overlap and ExactHaus -> "
+        f"coverage equal their host re-rank; {P} GBO -> range_points equal "
+        f"to the mixed batch's")
+
+
+def same_response(a, b) -> bool:
+    """Two served responses bit for bit: arrays by bytes, stats by value,
+    pipeline results field by field."""
+    if isinstance(b, (np.ndarray, np.generic)):
+        a, b = np.asarray(a), np.asarray(b)
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    if hasattr(b, "extras"):
+        return (all(same_response(getattr(a, f), getattr(b, f))
+                    for f in ("vals", "ids", "mask"))
+                and same_response(a.extras["ds_ids"], b.extras["ds_ids"]))
+    if isinstance(b, tuple) and not hasattr(b, "_fields"):
+        return len(a) == len(b) and all(same_response(x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def serving_phase(engine, repo, datasets, ops, serve_search):
+    """Phase 11: ``SearchServer`` over the same engine, 256 requests of
+    ``make_traffic(repo, datasets, 256, seed=0)`` at max_batch 64: one
+    warm-up burst, then a measured burst with the launch counters read
+    around it.  Every future resolves within a timeout, and each response
+    is bitwise equal to ``engine.search`` of its item."""
+    traffic = serve_search.make_traffic(repo, datasets, N_REQUESTS, seed=0)
+    server = serve_search.SearchServer(engine, max_batch=64)
+    server.start()
+    try:
+        for f in [server.submit(op, **p) for op, p in traffic]:
+            f.result(timeout=600)
+        server.stats = serve_search.ServerStats()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        futures = [server.submit(op, **p) for op, p in traffic]
+        got = [f.result(timeout=600) for f in futures]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+    finally:
+        server.stop()
+    check(not server._thread.is_alive(), "the dispatcher thread outlived stop()")
+    st = server.stats
+    summary = {"requests": N_REQUESTS, "max_batch": 64, "seconds": dt,
+               "qps": N_REQUESTS / dt, "p50_ms": st.p50_ms,
+               "p99_ms": st.p99_ms, "mean_latency_ms": st.mean_latency_ms,
+               "dispatch_groups": st.batches,
+               "mean_batch": st.mean_batch, "launches": launches}
+    log("serving: " + json.dumps(summary))
+    for name in ("set_intersect", "bound_grid", "hausdorff_grid",
+                 "bound_row_ub"):
+        check(launches[name] > 0, f"serving launched no {name}")
+    n_valid = int(repo.ds_valid.sum())
+    for i, ((op, p), res) in enumerate(zip(traffic, got)):
+        want = serve_search._legacy_result(
+            engine.search([serve_search._to_query(op, p)])[0])
+        if op in ("topk_overlap", "topk_coverage"):
+            # a joinable query's counters depend on the batch it shared:
+            # the refine order is the batch's (so in the JAX package);
+            # its vals and ids do not
+            s = res[2]
+            check(0 < s.candidates_after_bounds <= s.exact_evaluations
+                  <= n_valid, f"served request {i} ({op}): stats {s}")
+            res, want = res[:2], want[:2]
+        check(same_response(res, want), f"served request {i} ({op}) differs "
+              f"from engine.search of the same item")
+    log(f"gates: {N_REQUESTS} served responses bitwise equal to "
+        f"engine.search of each item (joinable: vals and ids)")
+    return summary
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -1083,8 +1399,36 @@ def main() -> int:
     launches["nn_distance"] = dataset_point_gates(
         repo, res2, lo, hi, q_batch, eps, search, point_search, ops)
 
+    # ---- 9. the join batch: joinable ops and dataset -> dataset pipelines
+    from repro_torch.core import join_search
+    from repro_torch.launch import serve_search
+
+    j_items = join_items(q_sets, q_sigs.cpu().numpy().astype(np.uint32), lo,
+                         hi, Query, Pipeline)
+    res_j, j_summary, j_launches, j_calls = join_path(
+        engine, j_items, reps, ops, set_intersect)
+    n_planes = join_search.num_planes(max(
+        q.built_capacity(engine.leaf_capacity) for q in j_items
+        if isinstance(q, Query)))
+    B = engine.bucket_for(N_QUERIES)
+    kinds = [join_call_kind(a, repo, B, n_planes) for a in j_calls]
+    j_summary["set_intersect_launches_by_kind"] = {
+        kd: kinds.count(kd) for kd in sorted(set(kinds))}
+    log("join path: " + json.dumps(j_summary))
+    check(j_launches["set_intersect"] > 0,
+          "the join batch launched no set_intersect")
+    join_gates(repo, res_j, q_sets, lo, hi, res, res2, join_search)
+
+    # ---- 10. set_intersect at the join shapes, on the path's operands --
+    j_rows = join_kernel_rows(j_calls, repo, B, n_planes, set_intersect, ref)
+    del j_calls
+
+    # ---- 11. serving: SearchServer over the same engine ----------------
+    serving_phase(engine, repo, datasets, ops, serve_search)
+
     for r in rows:
         r["launches"] = launches[r["name"]]
+    rows += j_rows
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

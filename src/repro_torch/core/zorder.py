@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ref import popcount64
+
 WORD_BITS = 32
 
 
@@ -68,3 +70,20 @@ def signature(points: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
     shifts = torch.arange(WORD_BITS, dtype=torch.int64, device=ids.device)
     # bits are distinct, so the sum is the bitwise OR
     return (occ << shifts).sum(dim=-1)
+
+
+def sig_intersect_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """GBO (Def. 7): |z(A) AND z(B)| by popcount, int32.  Broadcasts over
+    the leading dims and reduces the trailing word axis."""
+    return popcount64(a & b).sum(dim=-1).to(torch.int32)
+
+
+def sig_count(a: torch.Tensor) -> torch.Tensor:
+    """Occupied cells of each signature, int32 (reduces the word axis)."""
+    return popcount64(a).sum(dim=-1).to(torch.int32)
+
+
+def default_epsilon(lo: torch.Tensor, hi: torch.Tensor,
+                    theta: int) -> torch.Tensor:
+    """Paper Eq. 8: cell width of the x-extent at resolution theta."""
+    return (hi[0] - lo[0]) / (1 << theta)

@@ -1,6 +1,6 @@
 """Batched (multi-query) forms of the search ops: the engine's hot paths.
 
-Counterpart of ``repro.engine.batched_ops`` (all but the joinable top-k).
+Counterpart of ``repro.engine.batched_ops``.
 Each function answers B queries in one dispatch; JAX's ``vmap`` over a
 leading query axis is a batch axis written out.  Results are elementwise
 those of the single-query ops in ``core``.  Query batches arrive padded to a
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import geometry, point_search, search
+from repro_torch.core import geometry, join_search, point_search, search
 from repro_torch.core.index import DatasetIndex
 from repro_torch.core.repo_index import Repository
 from repro_torch.kernels import ops
@@ -46,6 +46,19 @@ def topk_gbo_batched(repo: Repository, q_sigs, k: int):
     counts = torch.where(repo.ds_valid[None, :], counts, -1)
     vals, ids = search._topk_largest(counts, k)
     return vals, torch.where(vals < 0, -1, ids)
+
+
+def topk_join_batched(repo: Repository, q_pts, q_val, k: int, mode: str,
+                      chunk: int):
+    """Joinable top-k (grid overlap or coverage) for B raw query point sets
+    (B, n, d) / (B, n): the coarse-signature bound phase, then the
+    shared-order chunked exact refine (``core.join_search``).  Returns
+    (vals (B, k), ids (B, k), nodes (B,), cand_after (B,), evaluated (B,))
+    with -1 sentinels past the valid or unpruned supply."""
+    exact, nodes, cand, evaluated = join_search.topk_join_scores(
+        repo, q_pts, q_val, k, mode, chunk)
+    vals, ids = search._topk_largest(exact, k)
+    return vals, torch.where(vals < 0, -1, ids), nodes, cand, evaluated
 
 
 # ---------------------------------------------------------------------------

@@ -17,11 +17,13 @@ with ``device="cpu"``) and answers declarative batches through
   * **one dispatch per group** — each (op, statics, query shape) group of a
     batch runs as one batched call through the dispatcher.
 
+``default_chunk`` is the refine chunk of ExactHaus queries that leave
+``chunk`` unset and of the joinable ops; chunk never changes a result.
 The JAX engine also keeps an executable cache, one compiled program per
 (op, bucket, k) key.  Eager PyTorch compiles nothing, so there is nothing
 to cache and that part is not ported; ``EngineStats`` keeps the query,
 dispatch, result-cache and planner counters.  The sharded and replicated
-dispatchers, the live repository and the joinable ops are later slices.
+dispatchers and the live repository are later slices.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import index as index_lib
-from repro_torch.core import point_search, search
+from repro_torch.core import join_search, point_search, search
 from repro_torch.core.build import pad_batch
 from repro_torch.core.index import DatasetIndex
 from repro_torch.core.repo_index import Repository
@@ -43,8 +45,6 @@ from repro_torch.engine import plan as plan_lib
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 DEFAULT_RESULT_CACHE = 256
-#: ExactHaus phase-2 chunk for queries that leave ``chunk`` unset
-DEFAULT_CHUNK = 32
 
 
 def _digest(*parts) -> bytes:
@@ -221,15 +221,36 @@ class LocalDispatcher:
     def build_nnp(self):
         return self._bind(batched_ops.nnp_pruned_batched)
 
+    def build_topk_overlap(self, k: int, chunk: int):
+        return self._bind(batched_ops.topk_join_batched, k=k,
+                          mode="overlap", chunk=chunk)
+
+    def build_topk_coverage(self, k: int, chunk: int):
+        return self._bind(batched_ops.topk_join_batched, k=k,
+                          mode="coverage", chunk=chunk)
+
+    def build_join_rerank(self, mode: str):
+        # dataset -> dataset pipeline stage 2: row-wise exact join score of
+        # the stage-1 winner slots (gathered by id on the device) against
+        # the query rows
+        def impl(repo, ds_ids, q_pts, q_val):
+            return join_search.pair_scores(
+                repo, repo.ds_index.points[ds_ids],
+                repo.ds_index.valid[ds_ids], q_pts, q_val, mode)
+
+        return self._bind(impl)
+
 
 class QueryEngine:
     """Batched search over a resident repository (see module docstring).
     The engine runs on the device its repository lives on."""
 
     def __init__(self, repo: Repository, *, leaf_capacity: int = 16,
-                 result_cache_size: int = DEFAULT_RESULT_CACHE):
+                 result_cache_size: int = DEFAULT_RESULT_CACHE,
+                 default_chunk: int = 32):
         self.buckets = DEFAULT_BUCKETS
         self.leaf_capacity = leaf_capacity
+        self.default_chunk = default_chunk
         self.stats = EngineStats()
         self.result_cache_size = result_cache_size
         self._result_cache: OrderedDict = OrderedDict()
@@ -454,9 +475,9 @@ class QueryEngine:
                              chunk: int | None = None):
         """ExactHaus for a (B, ...) query-index batch -> (vals (B, k),
         ids (B, k), list[SearchStats]).  ``chunk=None`` means
-        ``DEFAULT_CHUNK``; chunk never changes vals or ids."""
+        ``default_chunk``; chunk never changes vals or ids."""
         if chunk is None:
-            chunk = DEFAULT_CHUNK
+            chunk = self.default_chunk
         if not self.result_cache_size:
             return self._topk_hausdorff_dispatch(q_batch, k, refine_levels,
                                                  chunk)
@@ -491,6 +512,57 @@ class QueryEngine:
         ]
         self.stats.record_search("topk_hausdorff", stats)
         return vals[:B], ids[:B], stats
+
+    def _exec_topk_join(self, op: str, q_pts, q_val, k: int):
+        """Joinable top-k (``topk_overlap`` / ``topk_coverage``) for B raw
+        query point sets, host (B, n, d) points and (B, n) validity ->
+        (vals (B, k), ids (B, k), list[SearchStats]).  Cache keys carry the
+        data epoch: the bounds read the resident signatures and the refine
+        the resident points."""
+        pts_np = np.asarray(q_pts, np.float32)
+        val_np = np.asarray(q_val, bool)
+        pts = self._upload(pts_np, torch.float32)
+        val = self._upload(val_np, torch.bool)
+        if not self.result_cache_size:
+            return self._topk_join_dispatch(op, pts, val, k)
+        keys = [(op, self._repo_epoch, k, _digest(pts_np[i], val_np[i]))
+                for i in range(pts_np.shape[0])]
+        return self._serve_cached(
+            op, keys,
+            lambda sel: self._topk_join_dispatch(
+                op, _take_rows(pts, sel), _take_rows(val, sel), k),
+            split=_split_rows, join=_join_rows)
+
+    def _topk_join_dispatch(self, op: str, q_pts, q_val, k: int):
+        """One batched joinable dispatch plus per-query SearchStats."""
+        B = q_pts.shape[0]
+        bucket = self.bucket_for(B)
+        build = getattr(self.dispatch, "build_" + op)
+        vals, ids, nodes, cand_after, evaluated = build(
+            k, self.default_chunk)(self._pad_rows(q_pts, bucket),
+                                   self._pad_rows(q_val, bucket))
+        self.stats.count(op, B, bucket)
+        counters = torch.stack([nodes[:B], cand_after[:B], evaluated[:B]])
+        nodes, cand_after, evaluated = counters.cpu().numpy()
+        stats = join_search.join_stats_host(self._n_valid, evaluated, nodes,
+                                            cand_after)
+        self.stats.record_search(op, stats)
+        return vals[:B], ids[:B], stats
+
+    def _exec_join_rerank(self, op: str, ds_ids, q_pts, q_val):
+        """Stage 2 of a dataset -> dataset pipeline: the exact join score
+        of winner slot ``ds_ids[t]`` against query row t, (T,) int32 on
+        the device.  The ids arrive on the device, so, as for the point
+        stages, this path bypasses the result cache."""
+        mode = "overlap" if op == "topk_overlap" else "coverage"
+        T = ds_ids.shape[0]
+        bucket = self.bucket_for(T)
+        scores = self.dispatch.build_join_rerank(mode)(
+            self._pad_rows(ds_ids, bucket), self._pad_rows(q_pts, bucket),
+            self._pad_rows(q_val, bucket))
+        # one row per stage-1 winner, as the point stages count them
+        self.stats.count(op, T, bucket)
+        return scores[:T]
 
     def _exec_range_points(self, ds_ids, r_lo, r_hi):
         """RangeP for B (dataset id, box) requests on the host ->

@@ -17,12 +17,17 @@ Pipelines run in two stages:
     ``-1`` sentinel winners are clamped to slot 0 for the gather and
     masked out of the result).  Stage-2 rows group across pipelines by
     (point op, statics, built query capacity), so P pipelines with
-    compatible point stages cost one dispatch of ``sum(k_p)`` rows.
+    compatible point stages cost one dispatch of ``sum(k_p)`` rows.  A
+    joinable stage 2 (``topk_overlap`` / ``topk_coverage``, the dataset ->
+    dataset pipeline) takes the same handoff: the winner slots are
+    gathered by id on the device and exactly re-scored against the
+    stage's query set in one grouped dispatch, then re-ranked on the host
+    to the stage's top-k (descending score, ties keeping stage-1 rank;
+    sentinel winners score -1 and stay sentinels).
 
-The joinable ops (``topk_overlap`` / ``topk_coverage``), standalone or as
-either stage of a Pipeline, are not ported: ``execute`` raises
-``NotImplementedError`` naming the ROADMAP item that ports them, after
-checking the whole batch and before anything runs.
+Every op of ``engine.query.OPS`` is ported.  ``execute`` still checks the
+whole batch before anything runs, and would raise ``NotImplementedError``
+naming the ROADMAP item of an op missing from ``PORTED_OPS``.
 """
 from __future__ import annotations
 
@@ -35,13 +40,15 @@ import torch
 
 from repro_torch.core import index as index_lib
 from repro_torch.core.index import DatasetIndex
-from repro_torch.engine.query import Pipeline, Query, SearchResult
+from repro_torch.engine.query import (DATASET_RERANK_OPS, Pipeline, Query,
+                                      SearchResult)
 
 PORTED_OPS = ("range_search", "topk_ia", "topk_gbo", "topk_hausdorff_approx",
-              "topk_hausdorff", "range_points", "nnp")
+              "topk_hausdorff", "range_points", "nnp", "topk_overlap",
+              "topk_coverage")
 
-#: op -> the ROADMAP.md item (queue 1) that ports it
-ROADMAP_ITEM = {"topk_overlap": 8, "topk_coverage": 8}
+#: op -> the ROADMAP.md item (queue 1) that ports it, for ops not ported
+ROADMAP_ITEM: dict = {}
 
 
 @dataclass
@@ -92,6 +99,16 @@ def plan(items, leaf_capacity: int = 16) -> list[DispatchGroup]:
         g.rows.append(pos)
         g.queries.append(q)
     return list(groups.values())
+
+
+def count_groups(items, leaf_capacity: int = 16) -> int:
+    """Dispatch groups ``execute`` would form for a batch: stage-1 op
+    groups plus distinct pipeline stage-2 groups.  Host-side only, so an
+    observer (the serving front end) can count groups without reading the
+    engine's shared counters."""
+    s2 = {_stage2_key(it.point_stage, leaf_capacity)
+          for it in items if isinstance(it, Pipeline)}
+    return len(plan(items, leaf_capacity)) + len(s2)
 
 
 def execute(engine, items) -> list:
@@ -214,7 +231,28 @@ def _run_group(engine, g: DispatchGroup):
         return [SearchResult(op=op, vals=d, ids=i, mask=m, stats=s)
                 for d, i, m, s in zip(*_fetch(dists, idxs, q_batch.valid),
                                       stats)], None
+    if op in DATASET_RERANK_OPS:
+        pts, val = _stack_pointsets(
+            [q.q for q in qs],
+            max(q.built_capacity(engine.leaf_capacity) for q in qs))
+        vals, ids, stats = engine._exec_topk_join(op, pts, val, qs[0].k)
+        return [SearchResult(op=op, vals=v, ids=i, stats=s)
+                for v, i, s in zip(*_fetch(vals, ids), stats)], ids
     raise ValueError(f"unplannable op {op!r}")  # pragma: no cover
+
+
+def _stack_pointsets(pointsets, cap: int):
+    """(B, cap, d) points and (B, cap) validity from raw per-query sets, one
+    numpy stack (the joinable ops score on the grid, so no tree is built).
+    Padding rows are invalid and land in the grid's overflow cell, so any
+    two groupings of one query give the same scores."""
+    sets = [np.asarray(ps, np.float32) for ps in pointsets]
+    pts = np.zeros((len(sets), cap, sets[0].shape[-1]), np.float32)
+    val = np.zeros((len(sets), cap), bool)
+    for i, s in enumerate(sets):
+        pts[i, :s.shape[0]] = s
+        val[i, :s.shape[0]] = True
+    return pts, val
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +271,10 @@ def _stage2_key(ps: Query, leaf_capacity: int) -> tuple:
         else:
             depth = index_lib.depth_for(cap, leaf_capacity)
         return (ps.op, ps.statics(), cap, depth)
+    if ps.op in DATASET_RERANK_OPS:
+        # joinable re-rank rows stack raw padded point sets: the key pins
+        # the padded capacity, so the group's stack is shape-exact
+        return (ps.op, ps.statics(), ps.built_capacity(leaf_capacity))
     return (ps.op, ps.statics())
 
 
@@ -277,6 +319,9 @@ def _run_stage2(engine, items, stage1, handoffs, results) -> None:
                     stats=stats[o:o + k],
                     extras={"stage1": stage1[pos],
                             "ds_ids": stage1[pos].ids, "valid": v})
+        elif pop in DATASET_RERANK_OPS:
+            _stage2_rerank(engine, items, stage1, results, key, poss, ks,
+                           valid_flat, ds_flat)
         else:  # nnp
             rows = _stage2_nnp_rows(engine, items, poss)
             reps = torch.as_tensor(ks, device=engine.device)
@@ -296,6 +341,44 @@ def _run_stage2(engine, items, stage1, handoffs, results) -> None:
                             "ds_ids": stage1[pos].ids, "valid": v})
         engine.stats.record_latency(pop, time.perf_counter() - t0)
         engine.stats.pipeline_stage2 += len(poss)
+
+
+def _stage2_rerank(engine, items, stage1, results, key, poss, ks,
+                   valid_flat, ds_flat) -> None:
+    """Dataset -> dataset stage 2: the exact join score of each winner slot
+    against its pipeline's query set (one grouped dispatch, the ids on the
+    device), then a host re-rank to the stage's top-k.  Sentinel winners
+    were clamped to slot 0; their rows score -1 here, so a pipeline with
+    no surviving winner gives all-sentinel output instead of ranking slot
+    0."""
+    pop, cap = key[0], key[2]
+    pts, val = _stack_pointsets([items[pos].point_stage.q for pos in poss],
+                                cap)
+    total = int(sum(ks))
+    reps = torch.as_tensor(ks, device=engine.device)
+    pts_rep = engine._upload(pts, torch.float32).repeat_interleave(
+        reps, dim=0, output_size=total)
+    val_rep = engine._upload(val, torch.bool).repeat_interleave(
+        reps, dim=0, output_size=total)
+    scores = engine._exec_join_rerank(pop, ds_flat, pts_rep, val_rep)
+    valid_np, s_np = _fetch(valid_flat, scores)
+    off = 0
+    for pos, k in zip(poss, ks):
+        k2 = items[pos].point_stage.k
+        v = valid_np[off:off + k]
+        seg = np.where(v, s_np[off:off + k], -1).astype(np.int32)
+        win = stage1[pos].ids
+        # descending score; the stable sort keeps stage-1 rank on ties
+        order = np.argsort(-seg, kind="stable")[:k2]
+        vals = np.full((k2,), -1, np.int32)
+        ids = np.full((k2,), -1, np.int32)
+        vals[:len(order)] = seg[order]
+        ids[:len(order)] = np.where(vals[:len(order)] < 0, -1, win[order])
+        results[pos] = SearchResult(
+            op="pipeline", vals=vals, ids=ids, mask=vals >= 0,
+            extras={"stage1": stage1[pos], "ds_ids": stage1[pos].ids,
+                    "valid": v})
+        off += k
 
 
 def _stage2_nnp_rows(engine, items, poss) -> DatasetIndex:

@@ -2,8 +2,8 @@
 
 A copy of ``repro.engine.query`` (numpy only), kept in the port so that it
 imports nothing of the JAX package.  The spec covers every op of the
-system; the port's engine answers every op but the joinable ones and
-raises ``NotImplementedError`` for those (see ``repro_torch.engine.plan``).
+system, and the port's engine answers each of them
+(``repro_torch.engine.plan``).
 
 A client builds frozen :class:`Query` values (an op tag plus typed params)
 — or a two-stage :class:`Pipeline` (dataset-level top-k feeding a
@@ -100,7 +100,7 @@ class Query:
     k: int | None = None
     eps: float | None = None
     refine_levels: int = 3    # ExactHaus static params
-    chunk: int | None = None  # None -> the engine's DEFAULT_CHUNK
+    chunk: int | None = None  # None -> the engine's default_chunk
 
     def __post_init__(self):
         if self.op not in OPS:

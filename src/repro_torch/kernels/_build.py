@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -57,11 +58,15 @@ LAUNCHES = {name: 0 for name in KERNELS}
 
 _fns: dict = {}
 _libs: list = []          # keeps the loaded libraries alive
+#: guards the first build and load, and the launch counts: a server's
+#: dispatcher thread and the caller's thread may both use the kernels
+_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -120,15 +125,19 @@ def _lib_path(src: str) -> Path:
 def kernel(name: str):
     """The ctypes entry point of kernel ``name``, built on first use."""
     fn = _fns.get(name)
-    if fn is None:
-        build_all()
-        src, sym, argtypes = KERNELS[name]
-        lib = ctypes.CDLL(str(_lib_path(src)))
-        _libs.append(lib)
-        fn = getattr(lib, sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
+    if fn is not None:
+        return fn
+    with _lock:
+        fn = _fns.get(name)
+        if fn is None:
+            build_all()
+            src, sym, argtypes = KERNELS[name]
+            lib = ctypes.CDLL(str(_lib_path(src)))
+            _libs.append(lib)
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _fns[name] = fn
     return fn
 
 
@@ -136,4 +145,5 @@ def launched(name: str, rc: int) -> None:
     """Raise on a failed launch, else count it."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    with _lock:
+        LAUNCHES[name] += 1

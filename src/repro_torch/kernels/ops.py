@@ -6,7 +6,8 @@ and two for ``min_sq_dists`` and ``nn_distance`` (the JAX package's
 one-pair ops and their pair axis, one launch for a chunk of pairs), for
 ``hausdorff_grid`` (the JAX package's grid op and phase 2's lane op) and
 for ``bound_matrices`` (the JAX package's matrix op and the pruned NNP's
-``bound_row_ub``, its masked row min fused in).  There is no
+``bound_row_ub``, its masked row min fused in); the joinable ops'
+``plane_weighted_intersect`` is one ``set_intersect`` call.  There is no
 size-based routing and no autotune table: a CUDA tensor always launches
 the kernel (or raises), a CPU tensor always takes the plain version, and
 the two are bitwise equal.  ``LAUNCHES[name]`` counts kernel
@@ -132,6 +133,19 @@ def set_intersect_counts(sa: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
     if not _route("set_intersect_counts", sa):
         return ref.set_intersect_count(sa, sb)
     return set_intersect.intersect_counts(sa, sb)
+
+
+def plane_weighted_intersect(planes: torch.Tensor,
+                             sigs: torch.Tensor) -> torch.Tensor:
+    """Weighted popcounts of histogram bit planes: planes (B, P, W) and
+    signatures (S, W) -> (B, S) int32 of sum_p 2**p * |plane_p AND sig|,
+    the joinable coverage form.  One ``set_intersect_counts`` call of
+    (B * P, S) rows, so the whole batch is one launch on the card."""
+    b, p, w = planes.shape
+    cnt = set_intersect_counts(planes.reshape(b * p, w), sigs)
+    cnt = cnt.reshape(b, p, sigs.shape[0])
+    weights = 1 << torch.arange(p, dtype=torch.int32, device=cnt.device)
+    return (cnt * weights[None, :, None]).sum(dim=1, dtype=torch.int32)
 
 
 def nn_distance(q, d, q_valid, d_valid):

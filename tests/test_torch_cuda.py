@@ -505,3 +505,111 @@ def test_kernel_refuses_bad_input(cuda_device):
     with pytest.raises(ValueError, match="bool"):
         bound_matrix.bound_row_ub(q[None], v[None].float(), q[None],
                                   v[None].float(), v[None].float())
+
+
+def _plain_intersect(sa, sb, rows=64):
+    """The plain counts in row blocks: one call's (na, nb, W) int64
+    temporary is gigabytes at the coverage bound's shape."""
+    return torch.cat([ref.set_intersect_count(sa[i:i + rows], sb)
+                      for i in range(0, sa.shape[0], rows)])
+
+
+@pytest.mark.parametrize("na,nb,W", [
+    (32, 16384, 32),                 # overlap bound: B x S x 32
+    (416, 16384, 32),                # coverage bound: (B * P) x S x 32
+    (32, 32, 512),                   # overlap refine: B x chunk x 512
+    (416, 32, 512),                  # coverage refine: (B * P) x chunk x 512
+    (413, 29, 512), (7, 31, 500)])   # ragged rows, slots and words
+def test_set_intersect_join_shapes(cuda_device, na, nb, W):
+    """The joinable ops' shapes: one launch each, exact."""
+    rng = np.random.default_rng(na + nb + W)
+    sa = torch.from_numpy(rng.integers(0, 2 ** 32, (na, W))).to(cuda_device)
+    sb = torch.from_numpy(rng.integers(0, 2 ** 32, (nb, W))).to(cuda_device)
+    sa[:, ::3] = 0                   # sparse words, as histogram planes are
+    ops.reset_launches()
+    got = set_intersect.intersect_counts(sa, sb)
+    assert ops.LAUNCHES["set_intersect"] == 1
+    assert torch.equal(got, _plain_intersect(sa, sb))
+
+
+def test_plane_weighted_intersect(cuda_device):
+    """(B, P, W) planes against (S, W) signatures: one launch of (B * P)
+    rows, equal to the CPU's plain path."""
+    rng = np.random.default_rng(3)
+    planes = torch.from_numpy(rng.integers(0, 2 ** 32, (5, 13, 512)))
+    sigs = torch.from_numpy(rng.integers(0, 2 ** 32, (29, 512)))
+    ops.reset_launches()
+    got = ops.plane_weighted_intersect(planes.to(cuda_device),
+                                       sigs.to(cuda_device))
+    assert ops.LAUNCHES["set_intersect"] == 1
+    assert torch.equal(got.cpu(), ops.plane_weighted_intersect(planes, sigs))
+
+
+def _join_repos(cuda_device):
+    """One small repository on the CPU and the same index on the card."""
+    from repro_torch import bridge
+    from repro_torch.core.build import build_repository
+
+    rng = np.random.default_rng(9)
+    datasets = [(rng.uniform(-50, 50, 2)
+                 + rng.normal(size=(int(rng.integers(30, 120)), 2)) * 3
+                 ).astype(np.float32) for _ in range(45)]
+    cpu, _ = build_repository(datasets, leaf_capacity=16, theta=5,
+                              remove_outliers=False, device="cpu")
+    card = bridge.repository_to_torch(bridge.to_numpy(cpu), device=cuda_device)
+    return datasets, cpu, card
+
+
+def test_join_search_on_card(cuda_device):
+    """Both joinable ops and the dataset -> dataset pipeline on the card
+    equal the CPU's plain path: vals, ids and stats."""
+    from repro_torch.engine import Pipeline, Query, QueryEngine
+
+    datasets, cpu, card = _join_repos(cuda_device)
+    qs = [datasets[i][:70] for i in (0, 5, 17)]
+    lo, hi = qs[0].min(axis=0) - 5, qs[0].max(axis=0) + 5
+    items = ([Query(op=op, q=q, k=4) for op in ("topk_overlap",
+                                                "topk_coverage") for q in qs]
+             + [Pipeline(Query(op="topk_ia", r_lo=lo, r_hi=hi, k=6),
+                         Query(op="topk_coverage", q=qs[0], k=3))])
+    want = QueryEngine(cpu, result_cache_size=0, default_chunk=8).search(
+        items)
+    ops.reset_launches()
+    got = QueryEngine(card, result_cache_size=0, default_chunk=8).search(
+        items)
+    assert ops.LAUNCHES["set_intersect"] > 4
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.vals, w.vals)
+        np.testing.assert_array_equal(g.ids, w.ids)
+        assert g.stats == w.stats
+
+
+def test_server_on_card(cuda_device):
+    """The server's dispatcher thread drives the card; each response
+    equals a direct search of its item."""
+    from repro_torch.engine import QueryEngine
+    from repro_torch.launch import serve_search
+
+    datasets, _, card = _join_repos(cuda_device)
+    engine = QueryEngine(card)
+    server = serve_search.SearchServer(engine, max_batch=32)
+    traffic = serve_search.make_traffic(card, datasets, 36, seed=1)
+    server.start()
+    try:
+        futures = [server.submit(op, **p) for op, p in traffic]
+        got = [f.result(timeout=300) for f in futures]
+    finally:
+        server.stop()
+    direct = QueryEngine(card, result_cache_size=0)
+    for (op, p), res in zip(traffic, got):
+        want = serve_search._legacy_result(
+            direct.search([serve_search._to_query(op, p)])[0])
+        if op == "pipeline":
+            res, want = (res.vals, res.ids, res.mask), (want.vals, want.ids,
+                                                        want.mask)
+        for a, b in zip(res if isinstance(res, tuple) else (res,),
+                        want if isinstance(want, tuple) else (want,)):
+            if isinstance(b, np.ndarray):
+                np.testing.assert_array_equal(a, b)
+            else:
+                assert a == b

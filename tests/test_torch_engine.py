@@ -113,8 +113,28 @@ UNPORTED = [
 
 @pytest.mark.parametrize("item", UNPORTED, ids=[
     "topk_overlap", "topk_coverage", "pipeline", "pipeline_rerank"])
-def test_unported_ops_raise(env, item):
+def test_unported_ops_raise(env, item, monkeypatch):
+    """The joinable ops, once refused here, now run beside ExactHaus in one
+    batch, each as it runs alone.  The planner still checks a whole batch
+    before anything runs: an op missing from ``PORTED_OPS`` raises
+    ``NotImplementedError`` naming its ROADMAP item, and nothing
+    dispatches."""
+    from repro_torch.engine import plan as plan_lib
+
     _, q_sets, trepo, _, _ = env
+    engine = QueryEngine(trepo, result_cache_size=0)
+    both = engine.search([Query(op="topk_hausdorff", q=q_sets[0], k=K),
+                          item])
+    alone = QueryEngine(trepo, result_cache_size=0).search([item])[0]
+    for f in ("vals", "ids", "mask"):
+        a, b = getattr(both[1], f), getattr(alone, f)
+        assert (a is None and b is None) or np.array_equal(a, b)
+
+    monkeypatch.setattr(plan_lib, "PORTED_OPS", tuple(
+        op for op in plan_lib.PORTED_OPS
+        if op not in ("topk_overlap", "topk_coverage")))
+    monkeypatch.setattr(plan_lib, "ROADMAP_ITEM",
+                        {"topk_overlap": 8, "topk_coverage": 8})
     engine = QueryEngine(trepo, result_cache_size=0)
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md queue 1 item 8"):

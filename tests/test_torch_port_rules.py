@@ -11,6 +11,7 @@
 import ast
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import jax  # noqa: F401  (both packages load in one process)
@@ -20,8 +21,10 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.core.build import build_query_index, build_repository
-from repro_torch.kernels import (bound_matrix, hausdorff, nn_distance, ops,
-                                 set_intersect)
+from repro_torch.engine import QueryEngine
+from repro_torch.kernels import (_build, bound_matrix, hausdorff,
+                                 nn_distance, ops, set_intersect)
+from repro_torch.launch import serve_search
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -42,6 +45,13 @@ def _imported_roots(path: Path) -> set:
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+
+
+def test_join_and_serving_modules_are_scanned():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/core/join_search.py",
+            "src/repro_torch/launch/__init__.py",
+            "src/repro_torch/launch/serve_search.py"} <= names
 
 
 def test_cpu_tensors_take_the_plain_path():
@@ -69,10 +79,33 @@ def test_cpu_tensors_take_the_plain_path():
                      dv[None])
     sig = torch.arange(6, dtype=torch.int64).reshape(3, 2)
     ops.set_intersect_counts(sig, sig)
+    ops.plane_weighted_intersect(sig[:2, None], sig)
     assert ops.LAUNCHES == {"bound_grid": 0, "hausdorff_grid": 0,
                             "min_sq_dists": 0, "set_intersect": 0,
                             "nn_distance": 0, "bound_matrices": 0,
                             "bound_row_ub": 0}
+
+
+def test_launch_counts_survive_threads():
+    """A server's dispatcher thread and the caller may both launch kernels:
+    no count may be lost when many threads book launches at once."""
+    n_threads, per = 16, 2000
+    old = sys.getswitchinterval()
+    ops.reset_launches()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            _build.launched("set_intersect", 0) for _ in range(per)])
+            for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert ops.LAUNCHES["set_intersect"] == n_threads * per
+    finally:
+        sys.setswitchinterval(old)
+        ops.reset_launches()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -120,6 +153,20 @@ def test_entry_points_need_a_card_unless_told_cpu():
     repo, _ = build_repository(pts, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bridge.repository_to_torch(bridge.to_numpy(repo))
+
+
+def test_server_needs_a_card_unless_told_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    pts = [np.ones((20, 2), np.float32), np.zeros((30, 2), np.float32)]
+    repo, _ = build_repository(pts, device="cpu")
+    engine = QueryEngine(repo)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_search.SearchServer(engine)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_search.main(["--requests", "4", "--datasets", "4"])
+    server = serve_search.SearchServer(engine, device="cpu")
+    assert not server._running
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

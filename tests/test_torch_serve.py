@@ -1,0 +1,348 @@
+"""The port's serving front end, ``repro_torch.launch.serve_search``.
+
+Mirrors the single-device tests of ``tests/test_serve_search.py``: mixed op
+kinds in one drain, each request's rows reaching its own future, the
+timeout flush of a partial batch, both drain policies, the injected clock,
+poisoned-row isolation and ``stop()`` failing queued requests.  Every
+served result is held against a direct ``QueryEngine.search`` of the same
+item.  The live lane and the multi-device options raise
+``NotImplementedError`` naming their ROADMAP items.  The traffic generator
+gives the JAX package's stream for the same seed.
+"""
+import time
+
+import numpy as np
+import pytest
+
+from conftest import make_clustered_datasets
+from repro.launch import serve_search as jserve
+from repro_torch import bridge
+from repro_torch.core.build import build_repository
+from repro_torch.engine import Query, QueryEngine
+from repro_torch.launch import serve_search
+from repro_torch.launch.serve_search import (OPS, Request, SearchServer,
+                                             _legacy_result, _to_query,
+                                             make_traffic)
+
+THETA = 5
+K = 4
+WAIT = 120          # seconds any future may take before a test fails
+
+
+@pytest.fixture(scope="module")
+def env():
+    datasets = make_clustered_datasets(17, seed=4, n_points=(20, 60))
+    repo, _ = build_repository(datasets, leaf_capacity=16, theta=THETA,
+                               remove_outliers=False, device="cpu")
+    return datasets, repo
+
+
+def _server(engine, **kw):
+    return SearchServer(engine, device="cpu", **kw)
+
+
+def _assert_same(got, want):
+    """A served response against the same shape built from a direct
+    search: arrays exactly, stats and nested results field by field."""
+    if isinstance(want, tuple):
+        assert isinstance(got, tuple) and len(got) == len(want)
+        for g, w in zip(got, want):
+            _assert_same(g, w)
+    elif hasattr(want, "extras"):                  # a pipeline result
+        for f in ("vals", "ids", "mask"):
+            _assert_same(getattr(got, f), getattr(want, f))
+        for key in ("ds_ids", "valid"):
+            _assert_same(got.extras[key], want.extras[key])
+    elif isinstance(want, np.ndarray):
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert got == want
+
+
+def _direct(engine, op, payload):
+    return _legacy_result(engine.search([_to_query(op, payload)])[0])
+
+
+def test_mixed_ops_one_drain(env):
+    """A burst of every op kind and all three pipeline kinds, pre-filled
+    before the dispatcher starts, drains as one engine.search call: 11
+    stage-1 groups and 3 stage-2 groups.  Each response equals a direct
+    search of its item."""
+    datasets, repo = env
+    engine = QueryEngine(repo)
+    server = _server(engine, max_batch=64, max_wait_ms=250.0)
+    traffic = make_traffic(repo, datasets, 27, seed=3)   # >= 2 of each kind
+    assert {op for op, _ in traffic} == set(OPS)
+    reqs = [Request(op, _to_query(op, p)) for op, p in traffic]
+    for r in reqs:
+        server._queue.put(r)
+    server.start()
+    try:
+        results = [r.future.result(timeout=WAIT) for r in reqs]
+    finally:
+        server.stop()
+    assert server.stats.requests == 27
+    assert server.stats.batches == 14
+    assert server.stats.batch_size_sum == 27
+    assert engine.stats.pipeline_stage1 == engine.stats.pipeline_stage2 == 6
+    direct = QueryEngine(repo, result_cache_size=0)
+    n_valid = int(repo.ds_valid.sum())
+    for (op, payload), res in zip(traffic, results):
+        want = _direct(direct, op, payload)
+        if op in ("topk_overlap", "topk_coverage"):
+            # the counters of a joinable query depend on the batch it
+            # shared (the refine order is the batch's); vals and ids do not
+            s = res[2]
+            assert 0 < s.candidates_after_bounds <= s.exact_evaluations \
+                <= n_valid
+            res, want = res[:2], want[:2]
+        _assert_same(res, want)
+        if op == "topk_hausdorff":
+            assert res[2].exact_evaluations > 0
+
+
+def test_request_response_id_mapping(env):
+    datasets, repo = env
+    engine = QueryEngine(repo)
+    server = _server(QueryEngine(repo), max_batch=16,
+                     max_wait_ms=100.0).start()
+    try:
+        rng = np.random.default_rng(7)
+        lo = rng.uniform(-60, 40, (9, 2)).astype(np.float32)
+        hi = lo + rng.uniform(5, 40, (9, 2)).astype(np.float32)
+        futures = [server.submit("topk_ia", q_lo=lo[i], q_hi=hi[i], k=K)
+                   for i in range(9)]
+        got = [f.result(timeout=WAIT) for f in futures]
+    finally:
+        server.stop()
+    for i, res in enumerate(got):
+        _assert_same(res, _direct(engine, "topk_ia",
+                                  dict(q_lo=lo[i], q_hi=hi[i], k=K)))
+
+
+def test_queue_timeout_flush(env):
+    """A partial batch far below max_batch flushes after max_wait."""
+    datasets, repo = env
+    server = _server(QueryEngine(repo), max_batch=1024,
+                     max_wait_ms=5.0).start()
+    try:
+        rng = np.random.default_rng(11)
+        lo = rng.uniform(-60, 40, (3, 2)).astype(np.float32)
+        futures = [server.submit("range_search", r_lo=lo[i], r_hi=lo[i] + 5)
+                   for i in range(3)]
+        for f in futures:
+            f.result(timeout=WAIT)
+    finally:
+        server.stop()
+    assert server.stats.requests == 3
+    assert server.stats.batches >= 1
+
+
+def test_adaptive_drain_and_latency_stats(env):
+    datasets, repo = env
+    engine = QueryEngine(repo)
+    server = _server(engine, max_batch=16, max_wait_ms=100.0,
+                     adaptive=True).start()
+    try:
+        rng = np.random.default_rng(23)
+        lo = rng.uniform(-60, 40, (6, 2)).astype(np.float32)
+        futures = [server.submit("range_search", r_lo=lo[i], r_hi=lo[i] + 8)
+                   for i in range(6)]
+        got = [f.result(timeout=WAIT) for f in futures]
+        assert engine.stats.latency_ewma["range_search"] > 0.0
+        # a lone request once the EWMAs exist takes the sized window
+        lone = server.submit("range_search", r_lo=lo[0], r_hi=lo[0] + 8)
+        lone_res = lone.result(timeout=WAIT)
+    finally:
+        server.stop()
+    direct = QueryEngine(repo)
+    for i, res in enumerate(got):
+        _assert_same(res, _direct(direct, "range_search",
+                                  dict(r_lo=lo[i], r_hi=lo[i] + 8)))
+    _assert_same(lone_res, got[0])
+    assert server.stats.requests == 7
+    assert server.stats.op_ewma["range_search"] > 0.0
+    assert server.stats.p99_ms >= server.stats.p50_ms >= 0.0
+
+
+def test_depth_scaled_drain_bound(env):
+    """Adaptive drains of a backlog deeper than max_batch grow to
+    OVERFILL x max_batch; the static policy keeps max_batch.  _drain runs
+    on unstarted, pre-filled servers."""
+    datasets, repo = env
+    engine = QueryEngine(repo)
+
+    def prefill(adaptive, n):
+        server = _server(engine, max_batch=8, max_wait_ms=2.0,
+                         adaptive=adaptive)
+        for _ in range(n):
+            server._queue.put(Request("range_search", None))
+        return server
+
+    assert len(prefill(True, 3 * 8)._drain()) == 3 * 8
+    assert len(prefill(True, 5 * 8)._drain()) == SearchServer.OVERFILL * 8
+    assert len(prefill(True, 4)._drain()) == 4
+    assert len(prefill(False, 3 * 8)._drain()) == 8
+
+
+def test_submit_unknown_op_and_stopped_server(env):
+    datasets, repo = env
+    server = _server(QueryEngine(repo), max_batch=8)
+    with pytest.raises(RuntimeError):
+        server.submit("range_search", r_lo=np.zeros(2), r_hi=np.ones(2))
+    server.start()
+    try:
+        with pytest.raises(ValueError):
+            server.submit("not_an_op")
+    finally:
+        server.stop()
+
+
+def test_poisoned_request_isolated(env):
+    """A malformed request sharing a drain fails only its own future."""
+    datasets, repo = env
+    engine = QueryEngine(repo)
+    server = _server(engine, max_batch=16, max_wait_ms=200.0)
+    rng = np.random.default_rng(13)
+    lo = rng.uniform(-60, 40, (2, 2)).astype(np.float32)
+    hi = lo + 5.0
+    good1 = Request("topk_ia", Query(op="topk_ia", r_lo=lo[0], r_hi=hi[0],
+                                     k=K))
+    # same (op, k) group, wrong box rank: poisons the group's stack
+    bad = Request("topk_ia", Query(op="topk_ia", r_lo=np.zeros(3, np.float32),
+                                   r_hi=np.ones(3, np.float32), k=K))
+    good2 = Request("range_search", Query(op="range_search", r_lo=lo[1],
+                                          r_hi=hi[1]))
+    for r in (good1, bad, good2):
+        server._queue.put(r)                    # one drain
+    server.start()
+    try:
+        v, j = good1.future.result(timeout=WAIT)
+        assert v.shape == (K,)
+        mask = good2.future.result(timeout=WAIT)
+        with pytest.raises(Exception):
+            bad.future.result(timeout=WAIT)
+        # the dispatcher survived the poisoned drain
+        after = server.submit("topk_ia", q_lo=lo[1], q_hi=hi[1], k=K)
+        after_res = after.result(timeout=WAIT)
+    finally:
+        server.stop()
+    direct = QueryEngine(repo)
+    _assert_same((v, j), _direct(direct, "topk_ia",
+                                 dict(q_lo=lo[0], q_hi=hi[0], k=K)))
+    _assert_same(mask, _direct(direct, "range_search",
+                               dict(r_lo=lo[1], r_hi=hi[1])))
+    _assert_same(after_res, _direct(direct, "topk_ia",
+                                    dict(q_lo=lo[1], q_hi=hi[1], k=K)))
+
+
+def test_stop_fails_queued_requests(env):
+    datasets, repo = env
+    server = _server(QueryEngine(repo), max_batch=8).start()
+    server.stop()                        # the dispatcher has exited
+    req = Request("range_search", None)
+    server._queue.put(req)               # lands after the dispatcher died
+    server.stop()                        # the second stop fails it
+    assert req.future.done()
+    with pytest.raises(RuntimeError):
+        req.future.result(timeout=0)
+    assert not server._thread.is_alive()
+
+
+class _FakeClock:
+    """Virtual time: each call returns the current instant, then advances
+    by ``step`` (0: pinned)."""
+
+    def __init__(self, t=0.0, step=0.0):
+        self.t, self.step = t, step
+
+    def __call__(self):
+        now = self.t
+        self.t += self.step
+        return now
+
+
+def test_clock_injected_static_drain_deadline(env):
+    """The static deadline reads the injected clock: virtual time jumping
+    past max_wait lets a pre-filled partial batch drain at once, with no
+    real wait against the 5-second window."""
+    datasets, repo = env
+    clk = _FakeClock(t=100.0, step=10.0)
+    server = _server(QueryEngine(repo), max_batch=64, max_wait_ms=5000.0,
+                     adaptive=False, clock=clk)
+    for _ in range(3):
+        server._queue.put(Request("range_search", None, t_submit=clk()))
+    t0 = time.perf_counter()
+    batch = server._drain()
+    assert len(batch) == 3
+    assert time.perf_counter() - t0 < 2.0
+    assert clk.t > 100.0
+
+
+def test_clock_injected_latency_accounting(env):
+    datasets, repo = env
+    clk = _FakeClock(t=50.0, step=0.0)
+    server = _server(QueryEngine(repo), max_batch=8, max_wait_ms=20.0,
+                     adaptive=False, clock=clk).start()
+    try:
+        lo = np.float32([-10, -10])
+        futures = [server.submit("range_search", r_lo=lo, r_hi=-lo)
+                   for _ in range(3)]
+        for f in futures:
+            f.result(timeout=WAIT)
+    finally:
+        server.stop()
+    assert server.stats.latencies == [0.0, 0.0, 0.0]
+    assert server.stats.p99_ms == server.stats.p50_ms == 0.0
+
+
+def test_make_traffic_matches_jax(env):
+    """The same seed gives the JAX package's request stream: ops, boxes,
+    query sets, GBO signatures and eps."""
+    datasets, repo = env
+    got = make_traffic(repo, datasets, 36, seed=5)
+    want = jserve.make_traffic(bridge.to_numpy(repo), datasets, 36, seed=5)
+
+    def same(a, b):
+        if isinstance(b, dict):
+            assert set(a) == set(b)
+            for key in b:
+                same(a[key], b[key])
+        elif isinstance(b, np.ndarray):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b
+
+    assert [op for op, _ in got] == [op for op, _ in want]
+    for (_, a), (_, b) in zip(got, want):
+        same(a, b)
+
+
+@pytest.mark.parametrize("call,item", [
+    ("server_live", 11), ("submit_mutation", 11), ("traffic_mutate", 11),
+    ("--live", 11), ("--mutate-every", 11), ("--sharded", 12),
+    ("--replicas", 12), ("--data-shards", 12)])
+def test_unported_lanes_name_their_item(env, call, item):
+    datasets, repo = env
+    match = f"ROADMAP.md queue 1 item {item}"
+    with pytest.raises(NotImplementedError, match=match):
+        if call == "server_live":
+            SearchServer(QueryEngine(repo), live=object(), device="cpu")
+        elif call == "submit_mutation":
+            _server(QueryEngine(repo)).submit_mutation("delete", ds_id=0)
+        elif call == "traffic_mutate":
+            make_traffic(repo, datasets, 8, mutate_every=4)
+        else:
+            arg = {"--replicas": ["2"], "--data-shards": ["2"],
+                   "--mutate-every": ["3"]}.get(call, [])
+            serve_search.main(["--device", "cpu", "--datasets", "4", call,
+                               *arg])
+
+
+def test_main_serves_on_the_cpu_when_told(env, capsys):
+    stats = serve_search.main(["--device", "cpu", "--requests", "24",
+                               "--datasets", "12"])
+    assert stats.requests == 24
+    out = capsys.readouterr().out
+    assert "[serve_search] device: cpu" in out
