@@ -72,7 +72,25 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      max_batch 64 (QPS, p50/p99, requests per dispatch group), every
      future resolved within a timeout and each response bitwise equal to
      ``engine.search`` of its item (a joinable query's counters depend on
-     the batch it shared, so there its vals and ids).
+     the batch it shared, so there its vals and ids);
+ 12. the live repository: ``LiveRepository`` over the same 10,357
+     trajectories on the card (``init_live``, every row a batch-of-1
+     build; its time beside phase 2's batched build, and the count of
+     slots that differ bitwise from that build, which is information),
+     then a served stream of ``make_traffic(..., 128, seed=0,
+     mutate_every=16)`` at max_batch 64 after a warm-up of its queries
+     (QPS, query p50/p99, publish p50/p99, mutation latency, coalesced
+     mutations, invalidations, peak memory, launches per kernel); gates:
+     every future resolves within a timeout, each mutation returns the slot
+     the free-list rule predicts, the uploaded bytes are one 4,096 x 9
+     payload per ingest or replace, the live repository is bitwise equal
+     to ``frozen_repository()``, and a batch of every op of ``OPS`` on the
+     live engine is bitwise equal (vals, ids, masks) to a cold engine over
+     that build;
+ 13. tier growth: 12 trajectories in a 16-slot tier, six ingests past it,
+     a delete and a replace; the slot count doubles, the layout epoch
+     reads 1, and the repository and the every-op batch are bitwise equal
+     to the cold build.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -123,6 +141,9 @@ THETA = 5
 K2 = 5
 # the serving phase's requests
 N_REQUESTS = 256
+# the live phase's served stream: requests, and a mutation every this many
+LIVE_REQUESTS = 128
+LIVE_EVERY = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -1028,6 +1049,24 @@ def same_response(a, b) -> bool:
     return a == b
 
 
+def check_served(i, op, p, res, engine, serve_search,
+                 what="engine.search of the same item") -> None:
+    """Served request ``i`` bitwise equal to ``engine.search`` of its item
+    alone.  A joinable query's counters depend on the batch it shared (the
+    refine order is the batch's, so in the JAX package) and are only
+    bounded; its vals and ids are held bitwise."""
+    want = serve_search._legacy_result(
+        engine.search([serve_search._to_query(op, p)])[0])
+    if op in ("topk_overlap", "topk_coverage"):
+        s = res[2]
+        check(0 < s.candidates_after_bounds <= s.exact_evaluations
+              <= int(engine.repo.ds_valid.sum()),
+              f"served request {i} ({op}): stats {s}")
+        res, want = res[:2], want[:2]
+    check(same_response(res, want), f"served request {i} ({op}) differs "
+          f"from {what}")
+
+
 def serving_phase(engine, repo, datasets, ops, serve_search):
     """Phase 11: ``SearchServer`` over the same engine, 256 requests of
     ``make_traffic(repo, datasets, 256, seed=0)`` at max_batch 64: one
@@ -1062,23 +1101,293 @@ def serving_phase(engine, repo, datasets, ops, serve_search):
     for name in ("set_intersect", "bound_grid", "hausdorff_grid",
                  "bound_row_ub"):
         check(launches[name] > 0, f"serving launched no {name}")
-    n_valid = int(repo.ds_valid.sum())
     for i, ((op, p), res) in enumerate(zip(traffic, got)):
-        want = serve_search._legacy_result(
-            engine.search([serve_search._to_query(op, p)])[0])
-        if op in ("topk_overlap", "topk_coverage"):
-            # a joinable query's counters depend on the batch it shared:
-            # the refine order is the batch's (so in the JAX package);
-            # its vals and ids do not
-            s = res[2]
-            check(0 < s.candidates_after_bounds <= s.exact_evaluations
-                  <= n_valid, f"served request {i} ({op}): stats {s}")
-            res, want = res[:2], want[:2]
-        check(same_response(res, want), f"served request {i} ({op}) differs "
-              f"from engine.search of the same item")
+        check_served(i, op, p, res, engine, serve_search)
     log(f"gates: {N_REQUESTS} served responses bitwise equal to "
         f"engine.search of each item (joinable: vals and ids)")
     return summary
+
+
+def repo_leaves(repo):
+    """Every tensor of a repository, in field order."""
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        else:
+            for y in x:
+                yield from walk(y)
+    return list(walk(repo))
+
+
+def repos_bitwise(a, b) -> bool:
+    return all(x.dtype == y.dtype and x.shape == y.shape
+               and torch.equal(x.contiguous().view(torch.uint8),
+                               y.contiguous().view(torch.uint8))
+               for x, y in zip(repo_leaves(a), repo_leaves(b)))
+
+
+def slots_differing(a, b):
+    """Slots whose bottom tree or signature differ in any bit between two
+    repositories of the same layout: (count, count per field)."""
+    bad = torch.zeros(a.n_slots, dtype=torch.bool, device=a.device)
+    per = {}
+    names = [*a.ds_index._fields, "ds_sigs", "ds_valid"]
+    for name, x, y in zip(names, [*a.ds_index, a.ds_sigs, a.ds_valid],
+                          [*b.ds_index, b.ds_sigs, b.ds_valid]):
+        x = x.contiguous().view(torch.uint8).reshape(a.n_slots, -1)
+        y = y.contiguous().view(torch.uint8).reshape(b.n_slots, -1)
+        row = (x != y).any(dim=1)
+        per[name] = int(row.sum())
+        bad |= row
+    return int(bad.sum()), per
+
+
+def predicted_slots(traffic, live_ids, n_slots):
+    """The outcome each mutation of a stream must return, by the free-list
+    rule: an ingest takes the smallest free slot (reserved at prepare, a
+    tier at a time past the end), a delete frees its slot when its run
+    publishes (runs of adjacent mutations publish together), a replace
+    keeps its id."""
+    import heapq
+
+    free = sorted(set(range(n_slots)) - set(live_ids))
+    want, run = [], []
+
+    def publish():
+        for op, sid in run:
+            if op == "delete":
+                heapq.heappush(free, sid)
+        run.clear()
+
+    for op, p in traffic:
+        if op not in ("ingest", "delete", "replace"):
+            publish()
+            continue
+        if op == "ingest":
+            if not free:
+                free.extend(range(n_slots, 2 * n_slots))
+                n_slots *= 2
+            sid = heapq.heappop(free)
+            want.append(sid)
+        else:
+            sid = p["ds_id"]
+            want.append(None if op == "delete" else sid)
+        run.append((op, sid))
+    return want
+
+
+def mixed_all_ops(q_sets, lo, hi, sigs, eps, point_ids, Query):
+    """Four queries of each op of ``OPS``: RangeS, IA, GBO, ApproHaus,
+    ExactHaus, RangeP and NNP (into ``point_ids``), overlap and
+    coverage."""
+    items = []
+    for i, j in enumerate(point_ids):
+        q = q_sets[i][:256]
+        items += [Query(op="range_search", r_lo=lo[i], r_hi=hi[i]),
+                  Query(op="topk_ia", r_lo=lo[i], r_hi=hi[i], k=K),
+                  Query(op="topk_gbo", q_sig=sigs[i], k=K),
+                  Query(op="topk_hausdorff_approx", q=q, k=K, eps=eps),
+                  Query(op="topk_hausdorff", q=q, k=K),
+                  Query(op="range_points", ds_id=j, r_lo=lo[i],
+                        r_hi=hi[i]),
+                  Query(op="nnp", ds_id=j + 1, q=q),
+                  Query(op="topk_overlap", q=q, k=K),
+                  Query(op="topk_coverage", q=q, k=K)]
+    return items
+
+
+def results_bitwise(got, want) -> bool:
+    for a, b in zip(got, want):
+        for f in ("vals", "ids", "mask"):
+            x, y = getattr(a, f), getattr(b, f)
+            if (x is None) != (y is None):
+                return False
+            if x is not None and (x.dtype != y.dtype or x.shape != y.shape
+                                  or x.tobytes() != y.tobytes()):
+                return False
+    return len(got) == len(want)
+
+
+def live_phase(datasets, repo, info, build_repo_s, items, ops,
+               serve_search):
+    """Phase 12: the live repository at T-Drive scale.  ``init_live`` of the
+    same datasets (every row a batch-of-1 build), its slots against the
+    batched build (information, no gate), then a served stream with a
+    mutation every ``LIVE_EVERY``-th request; gates: every future resolves,
+    each mutation returns the slot the free-list rule predicts, each served
+    query is bitwise equal to a cold engine over the repository published
+    at its stream position (the stream's peak memory therefore includes
+    those retained snapshots), the payload bytes, the live repository
+    bitwise equal to ``frozen_repository()``, and a mixed batch of every op
+    bitwise equal to a cold engine over it."""
+    from repro_torch.engine import LiveRepository, QueryEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live, init_s = sync_time(lambda: LiveRepository(
+        datasets, leaf_capacity=16, theta=THETA, remove_outliers=True))
+    geom = live.geometry
+    check(live.n_slots == repo.n_slots and geom.point_capacity
+          == repo.ds_index.points.shape[1], "live layout differs from the "
+          "batched build's")
+    differ, per_field = slots_differing(live.repo, repo)
+    log("live init: " + json.dumps({
+        "init_live_s": init_s, "build_repository_s": build_repo_s,
+        "slots": live.n_slots, "point_capacity": geom.point_capacity,
+        "r_prime": geom.r_prime, "space_lo": geom.space_lo,
+        "space_hi": geom.space_hi, "resident_bytes": live.repo.nbytes(),
+        "slots_differing_from_batched_build": differ,
+        "slots_differing_by_field": per_field,
+        "r_prime_equal_batched": geom.r_prime == float(
+            info["outlier_threshold"]),
+        "space_bounds_equal_batched": bool(
+            torch.equal(live.repo.space_lo, repo.space_lo)
+            and torch.equal(live.repo.space_hi, repo.space_hi))}))
+
+    traffic = serve_search.make_traffic(live.repo, datasets, LIVE_REQUESTS,
+                                        seed=0, mutate_every=LIVE_EVERY)
+    n_mut = sum(op in serve_search.MUTATION_OPS for op, _ in traffic)
+    want_out = predicted_slots(traffic, live.live_ids, live.n_slots)
+    server = serve_search.SearchServer(live=live, max_batch=64)
+    server.start()
+    try:
+        # warm-up: the stream's queries only, then the result cache and the
+        # server's counters are dropped
+        queries = [(op, p) for op, p in traffic
+                   if op not in serve_search.MUTATION_OPS]
+        for f in [server.submit(op, **p) for op, p in queries]:
+            f.result(timeout=600)
+        live.engine._result_cache.clear()
+        server.stats = serve_search.ServerStats()
+        # publishes are functional: keep the repository each publish
+        # installs, keyed by the stream's mutations published so far, to
+        # hold every served answer against the epoch of its position
+        snaps = {0: live.repo}
+        publish_group = live.publish_group
+
+        def recording_publish(group):
+            out = publish_group(group)
+            snaps[max(snaps) + len(group.items)] = live.repo
+            return out
+
+        live.publish_group = recording_publish
+        st0 = live.stats
+        i0, mc0 = st0.epoch_invalidations, st0.mutations_coalesced
+        p0, ov0 = len(st0.publish_seconds), st0.prepare_overlap_seconds
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        futures = [(server.submit_mutation(op, **p)
+                    if op in serve_search.MUTATION_OPS
+                    else server.submit(op, **p)) for op, p in traffic]
+        got = [f.result(timeout=600) for f in futures]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+    finally:
+        server.stop()
+        vars(live).pop("publish_group", None)
+    check(not server._thread.is_alive(), "the dispatcher thread outlived stop()")
+    outs = [g for (op, _), g in zip(traffic, got)
+            if op in serve_search.MUTATION_OPS]
+    check(outs == want_out, f"mutation outcomes {outs}, the free-list rule "
+          f"predicts {want_out}")
+    n_payload = sum(op in ("ingest", "replace") for op, _ in traffic)
+    check(live.bytes_uploaded == n_payload * geom.point_capacity * 9,
+          f"bytes uploaded {live.bytes_uploaded}, not {n_payload} payloads "
+          f"of {geom.point_capacity * 9}")
+    for name in ("set_intersect", "bound_grid", "hausdorff_grid",
+                 "bound_row_ub"):
+        check(launches[name] > 0, f"the live stream launched no {name}")
+    st = live.stats
+    sv = server.stats
+    summary = {
+        "requests": LIVE_REQUESTS, "mutate_every": LIVE_EVERY,
+        "mutations": n_mut, "seconds": dt, "qps": LIVE_REQUESTS / dt,
+        "query_p50_ms": sv.p50_ms, "query_p99_ms": sv.p99_ms,
+        "mutation_mean_ms": sv.mean_mutation_ms,
+        "mutation_latencies_ms": [1e3 * x for x in sv.mutation_latencies],
+        "publishes": len(st.publish_seconds) - p0,
+        "publish_p50_ms": st.publish_percentile_ms(50, since=p0),
+        "publish_p99_ms": st.publish_percentile_ms(99, since=p0),
+        "publish_ms": [1e3 * x for x in st.publish_seconds[p0:]],
+        "mutations_coalesced": st.mutations_coalesced - mc0,
+        "epoch_invalidations": st.epoch_invalidations - i0,
+        "prepare_overlap_host_s": st.prepare_overlap_seconds - ov0,
+        "payload_bytes_per_mutation": geom.point_capacity * 9,
+        "bytes_uploaded": live.bytes_uploaded, "epoch": live.epoch,
+        "dispatch_groups": sv.batches,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "epoch_snapshots_held": len(snaps),
+        "launches": launches, "outcomes": outs}
+    log("live stream: " + json.dumps(summary))
+
+    # each served query against a cold engine over the repository of its
+    # stream position: all mutations before it published, none after
+    n_before, cold, t_sweep = 0, None, time.perf_counter()
+    for i, ((op, p), res) in enumerate(zip(traffic, got)):
+        if op in serve_search.MUTATION_OPS:
+            n_before += 1
+            continue
+        check(n_before in snaps, f"served request {i}: no publish ended at "
+              f"its stream position ({n_before} mutations before it; "
+              f"publishes ended at {sorted(snaps)})")
+        if cold is None or cold.repo is not snaps[n_before]:
+            cold = QueryEngine(snaps[n_before], result_cache_size=0)
+        check_served(i, op, p, res, cold, serve_search, what=f"a cold "
+                     f"engine after the stream's first {n_before} mutations")
+    n_query = len(traffic) - n_mut
+    snaps.clear()
+    cold = None
+    log(f"gates: {n_query} served queries bitwise equal to a cold engine "
+        f"over the repository published at their stream position "
+        f"({time.perf_counter() - t_sweep:.3f} s; joinable: vals and ids)")
+
+    frozen, frozen_s = sync_time(live.frozen_repository)
+    check(repos_bitwise(live.repo, frozen), "the live repository differs "
+          "from build_frozen of its slot contents")
+    res_live, live_s = sync_time(lambda: live.search(items))
+    cold = QueryEngine(frozen, result_cache_size=0)
+    check(results_bitwise(res_live, cold.search(items)), "a mixed batch on "
+          "the live engine differs from a cold engine over the frozen build")
+    log(f"gates: {len(got)} futures resolved; {n_mut} mutations returned "
+        f"the predicted slots; {live.bytes_uploaded} bytes uploaded; live "
+        f"repository bitwise equal to build_frozen ({frozen_s:.3f} s); a "
+        f"batch of {len(items)} (every op) bitwise equal to a cold engine "
+        f"({live_s:.3f} s on the live engine)")
+    return summary
+
+
+def growth_phase(datasets, items, ops):
+    """Phase 13: tier growth on the card: 12 datasets in a 16-slot tier,
+    ingests past it; the slot count doubles, the layout epoch reads 1, and
+    the repository and a mixed batch are bitwise equal to the cold build."""
+    from repro_torch.engine import LiveRepository, QueryEngine
+
+    live = LiveRepository(datasets[:12], leaf_capacity=16, theta=THETA,
+                          remove_outliers=True)
+    check(live.n_slots == 16, f"{live.n_slots} slots for 12 datasets")
+    ids = [live.ingest(d) for d in datasets[12:18]]
+    live.delete(3)
+    live.replace(ids[-1], datasets[18])
+    check(ids == list(range(12, 18)), f"ingest ids {ids}")
+    check(live.n_slots == 32 and live.engine.dispatch.repo_epoch == 1,
+          f"after growth: {live.n_slots} slots, layout epoch "
+          f"{live.engine.dispatch.repo_epoch}")
+    frozen = live.frozen_repository()
+    check(repos_bitwise(live.repo, frozen), "grown repository differs from "
+          "build_frozen")
+    small = [q for q in items if q.ds_id is None or q.ds_id in live.live_ids]
+    check(len(small) == len(items), "the batch names a slot that is not live")
+    ops.reset_launches()
+    got = live.search(small)
+    check(results_bitwise(got, QueryEngine(frozen, result_cache_size=0)
+                          .search(small)),
+          "after growth, a mixed batch differs from a cold engine")
+    log(f"tier growth: 12 -> 18 datasets, 16 -> {live.n_slots} slots, "
+        f"layout epoch {live.engine.dispatch.repo_epoch}, data epoch "
+        f"{live.epoch}; repository and a batch of {len(small)} bitwise "
+        f"equal to the cold build; launches {json.dumps(dict(ops.LAUNCHES))}")
 
 
 def main() -> int:
@@ -1425,6 +1734,18 @@ def main() -> int:
 
     # ---- 11. serving: SearchServer over the same engine ----------------
     serving_phase(engine, repo, datasets, ops, serve_search)
+
+    # ---- 12. the live repository at T-Drive scale ----------------------
+    sig_np = q_sigs.cpu().numpy().astype(np.uint32)
+    del engine
+    # point queries into ids the stream never deletes
+    live_phase(datasets, repo, info, build_repo_s, mixed_all_ops(
+        q_sets, lo, hi, sig_np, eps, (6000, 6002, 6004, 6006), Query),
+        ops, serve_search)
+
+    # ---- 13. tier growth on the card ------------------------------------
+    growth_phase(datasets, mixed_all_ops(q_sets, lo, hi, sig_np, eps,
+                                         (4, 6, 8, 10), Query), ops)
 
     for r in rows:
         r["launches"] = launches[r["name"]]

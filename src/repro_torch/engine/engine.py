@@ -12,8 +12,9 @@ with ``device="cpu"``) and answers declarative batches through
     statics, query content digest; point ops by target slot and its
     epoch); repeated rows short-circuit before bucketing, duplicate rows
     inside one batch ride their twin's dispatch, and both are booked as
-    result-cache hits (``result_cache_size=0`` turns it off).  The epochs
-    stay 0: the live repository is not ported;
+    result-cache hits (``result_cache_size=0`` turns it off).  A
+    :class:`~repro_torch.engine.live.LiveRepository` moves the epochs
+    (:meth:`QueryEngine.set_repo_epoch`), which purges the retired rows;
   * **one dispatch per group** — each (op, statics, query shape) group of a
     batch runs as one batched call through the dispatcher.
 
@@ -22,8 +23,11 @@ with ``device="cpu"``) and answers declarative batches through
 The JAX engine also keeps an executable cache, one compiled program per
 (op, bucket, k) key.  Eager PyTorch compiles nothing, so there is nothing
 to cache and that part is not ported; ``EngineStats`` keeps the query,
-dispatch, result-cache and planner counters.  The sharded and replicated
-dispatchers and the live repository are later slices.
+dispatch, result-cache, planner and publish counters.  The dispatcher's
+layout epoch (``LocalDispatcher.repo_epoch``, bumped by a live tier
+growth) keys no cache here; it is kept so that growth reads the same
+values as in the JAX package.  The sharded and replicated dispatchers are
+a later slice.
 """
 from __future__ import annotations
 
@@ -100,12 +104,21 @@ class EngineStats:
     ``plan_groups`` and ``group_counts[op]`` count the dispatch groups a
     ``search()`` call formed (op groups and pipeline stage-2 groups alike),
     ``pipeline_stage1`` / ``pipeline_stage2`` the pipelines whose stage ran,
-    and :meth:`record_latency` each group's wall time."""
+    and :meth:`record_latency` each group's wall time.
+
+    Under a live repository, rows cached at a retired epoch are purged on
+    every epoch install and counted in ``epoch_invalidations``; a repeat
+    of the same query then books a miss.  :meth:`record_publish` books
+    each mutation publish."""
     queries: int = 0
     dispatches: int = 0
     padded_queries: int = 0          # bucket padding rows actually computed
     result_cache_hits: int = 0
     result_cache_misses: int = 0
+    epoch_invalidations: int = 0     # result rows retired by a repo epoch
+    mutations_coalesced: int = 0     # mutations that shared another's publish
+    prepare_overlap_seconds: float = 0.0   # prepare host time under serving
+    publish_seconds: list = field(default_factory=list)  # per-publish wall s
     plan_groups: int = 0             # dispatch groups formed by search()
     pipeline_stage1: int = 0         # pipelines whose dataset stage ran
     pipeline_stage2: int = 0         # pipelines whose point stage ran
@@ -144,6 +157,29 @@ class EngineStats:
         per["queries"] += hits
         per["result_hits"] = per.get("result_hits", 0) + hits
         per["result_misses"] = per.get("result_misses", 0) + misses
+
+    def record_publish(self, seconds: float, coalesced: int = 0) -> None:
+        """Book one mutation publish (the slot write, the upper-tree
+        rebuild and the swap of a group of prepared mutations): its wall
+        time, and ``coalesced`` mutations beyond the first that shared it."""
+        self.publish_seconds.append(seconds)
+        self.mutations_coalesced += coalesced
+
+    def publish_percentile_ms(self, p: float, since: int = 0) -> float:
+        """p-th percentile of per-publish wall time, in ms, over the
+        publishes from index ``since`` on (0 if none)."""
+        window = self.publish_seconds[since:]
+        if not window:
+            return 0.0
+        return 1e3 * float(np.percentile(np.asarray(window), p))
+
+    @property
+    def publish_p50_ms(self) -> float:
+        return self.publish_percentile_ms(50.0)
+
+    @property
+    def publish_p99_ms(self) -> float:
+        return self.publish_percentile_ms(99.0)
 
     def record_latency(self, op: str, seconds: float) -> None:
         """Book one dispatch group's wall time: the sum ``op_seconds[op]``
@@ -188,10 +224,17 @@ class LocalDispatcher:
 
     Each ``build_*`` returns a callable that takes only the query-side
     operands and reads ``self.repo`` when it is called, as the JAX
-    package's late-bound builders do."""
+    package's late-bound builders do: a live publish swaps ``self.repo``
+    and the next call reads the successor, while a call already running
+    keeps the tensors it read.
+
+    ``repo_epoch`` is the layout epoch, bumped by a live tier growth."""
+
+    repo_epoch = 0
 
     def __init__(self, repo: Repository):
         self.repo = repo
+        self.n_slots = repo.n_slots
 
     def _bind(self, impl, **statics):
         def call(*args, **kw):
@@ -257,13 +300,58 @@ class QueryEngine:
         self._n_valid = int(repo.ds_valid.sum())
         self.dispatch = LocalDispatcher(repo)
         self.repo = repo
-        # the data epoch and the per-slot epochs of the result-cache keys;
-        # 0 until the live repository is ported
+        # the data epoch and the per-slot epoch table of the result-cache
+        # keys; a live repository installs them (set_repo_epoch)
         self._repo_epoch = 0
+        self._slot_epochs = None
+
+    # -- repository epochs (live mutations) -------------------------------
+
+    @property
+    def repo_epoch(self) -> int:
+        """The data epoch of the resident repository (0 on a frozen
+        engine; bumped by every live publish)."""
+        return self._repo_epoch
 
     def slot_epoch(self, ds_id) -> int:
-        """Mutation epoch of dataset slot ``ds_id`` (0: frozen engine)."""
-        return 0
+        """Mutation epoch of dataset slot ``ds_id`` (0 on a frozen engine):
+        the component point-op keys carry, so rows cached for untouched
+        datasets survive mutations elsewhere."""
+        se = self._slot_epochs
+        return 0 if se is None else int(se[int(ds_id)])
+
+    def set_repo_epoch(self, epoch: int, slot_epochs=None,
+                       touched=None) -> None:
+        """Install a new repository epoch after a live publish.
+
+        ``epoch`` must not decrease; ``slot_epochs`` (an int array indexed
+        by slot) replaces the per-slot table.  Result rows keyed at a
+        retired epoch are purged now and counted in
+        ``stats.epoch_invalidations``.  ``touched``, the slots this publish
+        wrote, makes the sweep precise: point-op rows of other slots are
+        not even inspected.  Dataset-op rows retire on any data-epoch move,
+        since any slot write can change a whole-repository answer."""
+        if epoch < self._repo_epoch:
+            raise ValueError(
+                f"repository epoch must be monotone: {epoch} < "
+                f"{self._repo_epoch}")
+        self._repo_epoch = int(epoch)
+        if slot_epochs is not None:
+            self._slot_epochs = slot_epochs
+        stale = []
+        for key in list(self._result_cache):
+            if key[0] in ("range_points", "nnp"):
+                # (op, ds_id, slot_epoch, ...)
+                if touched is not None and key[1] not in touched:
+                    continue
+                if key[2] != self.slot_epoch(key[1]):
+                    stale.append(key)
+            elif key[1] != self._repo_epoch:
+                # (op, repo_epoch, ...)
+                stale.append(key)
+        for key in stale:
+            self._result_cache.pop(key, None)
+        self.stats.epoch_invalidations += len(stale)
 
     @property
     def device(self) -> torch.device:

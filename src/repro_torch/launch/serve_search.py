@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve_search [--requests 256]
     PYTHONPATH=src python -m repro_torch.launch.serve_search --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_search --device cpu \
+        --live --mutate-every 8 --requests 64 --datasets 32
 
 Counterpart of ``repro.launch.serve_search`` for one device.  Clients
 submit single queries of mixed kinds (RangeS, top-k IA / GBO, ApproHaus,
@@ -17,12 +19,20 @@ at submission; ``submit_query`` enqueues a ready-made spec.  The
 dispatcher's clock is injectable (``clock=``): latency accounting and the
 static drain deadline read ``self.clock()``, so tests drive virtual time.
 
+Live serving (``SearchServer(live=...)``, ``--live``): the server fronts a
+:class:`~repro_torch.engine.live.LiveRepository` and takes mutations on the
+same queue (``submit_mutation("ingest" | "delete" | "replace", ...)``), so
+a mutation takes effect at its position in the stream.  A drain closes at
+the first mutation -> query transition, so it is one query segment and a
+tail run of mutations: the segment is one engine call, the run one
+coalesced publish, whose prepare runs on a side thread while the segment
+is served.  Every query behind a mutation is answered at the
+post-mutation epoch.
+
 The server runs on the device its engine lives on, ``cuda`` unless it is
-given ``device="cpu"``.  Not ported yet: the live repository's mutation
-lane (``live=``, ``submit_mutation``, ``make_traffic(mutate_every>0)``,
-``--live``, ``--mutate-every``; ROADMAP.md queue 1 item 11) and the
-multi-device engines (``--sharded``, ``--replicas``, ``--data-shards``;
-item 12).  Each raises ``NotImplementedError`` naming its item.
+given ``device="cpu"``.  Not ported yet: the multi-device engines
+(``--sharded``, ``--replicas``, ``--data-shards``; ROADMAP.md queue 1
+item 12), which raise ``NotImplementedError`` naming the item.
 """
 from __future__ import annotations
 
@@ -30,7 +40,7 @@ import argparse
 import queue
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -42,6 +52,7 @@ from repro_torch.core.repo_index import Repository
 from repro_torch.device import resolve_device
 from repro_torch.engine import Pipeline, Query, QueryEngine, SearchResult
 from repro_torch.engine import plan as plan_lib
+from repro_torch.engine.live import MULTI_DEVICE_ITEM
 
 # ops the submit() shim wraps into a Query / Pipeline; any mix of them may
 # share one queue drain
@@ -51,14 +62,8 @@ OPS = (
     "topk_coverage", "pipeline",
 )
 
-LIVE_ITEM = "ROADMAP.md queue 1 item 11"
-MULTI_DEVICE_ITEM = "ROADMAP.md queue 1 item 12"
-
-
-def _live_lane(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the live repository's mutation lane is not ported to "
-        f"repro_torch yet ({LIVE_ITEM})")
+#: mutation kinds the live lane accepts (LiveRepository methods)
+MUTATION_OPS = ("ingest", "delete", "replace")
 
 
 def _to_query(op: str, payload: dict):
@@ -120,6 +125,18 @@ class Request:
 
 
 @dataclass
+class Mutation:
+    """One mutation riding the request queue, applied at its position in
+    the stream: queries drained before it see the old epoch, queries after
+    it the new one."""
+    op: str                                 # ingest | delete | replace
+    ds_id: int | None = None
+    points: Any = None
+    future: Future = field(default_factory=Future)
+    t_submit: float = field(default_factory=time.perf_counter)
+
+
+@dataclass
 class ServerStats:
     requests: int = 0
     batches: int = 0                        # dispatch groups planned
@@ -127,6 +144,9 @@ class ServerStats:
     latency_sum: float = 0.0
     latencies: list = field(default_factory=list)   # per-request seconds
     op_ewma: dict = field(default_factory=dict)     # op -> EWMA latency s
+    mutations: int = 0                      # mutation-lane ops applied
+    mutation_latency_sum: float = 0.0
+    mutation_latencies: list = field(default_factory=list)
 
     #: the smoothing of ``EngineStats.EWMA_ALPHA``
     EWMA_ALPHA = 0.2
@@ -147,6 +167,17 @@ class ServerStats:
         prev = self.op_ewma.get(op)
         self.op_ewma[op] = (seconds if prev is None
                             else prev + self.EWMA_ALPHA * (seconds - prev))
+
+    def record_mutation(self, seconds: float) -> None:
+        """Book one applied mutation's submit -> publish latency, apart from
+        the query latencies."""
+        self.mutations += 1
+        self.mutation_latency_sum += seconds
+        self.mutation_latencies.append(seconds)
+
+    @property
+    def mean_mutation_ms(self) -> float:
+        return 1e3 * self.mutation_latency_sum / max(self.mutations, 1)
 
     def percentile_ms(self, p: float) -> float:
         """p-th percentile of per-request latency, in ms (0 if empty)."""
@@ -194,23 +225,35 @@ class SearchServer:
         clock=time.perf_counter,
         device=None,
     ):
-        if live is not None:
-            raise _live_lane("SearchServer(live=...)")
         if engine is None:
-            raise ValueError("SearchServer needs an engine")
+            if live is None:
+                raise ValueError("SearchServer needs an engine or a live "
+                                 "repository")
+            engine = live.engine
+        elif live is not None and live.engine is not engine:
+            raise ValueError("live.engine and engine disagree: pass one")
         dev = resolve_device(device)
         if engine.device.type != dev.type:
             raise ValueError(f"SearchServer on {dev} was given an engine on "
                              f"{engine.device}")
         self.engine = engine
+        self.live = live
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1e3
         self.adaptive = adaptive
         self.clock = clock
         self.stats = ServerStats()
-        self._queue: "queue.Queue[Request | None]" = queue.Queue()
+        self._queue: "queue.Queue[Request | Mutation | None]" = queue.Queue()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._running = False
+        # 1-worker pool for the prepare stage of the next mutation run,
+        # started on first use; the segment it overlaps serves the published
+        # snapshot, which a prepare never touches
+        self._prep_pool: ThreadPoolExecutor | None = None
+        self._segment_span = (0.0, 0.0)
+        # the first request past a mutation run, carried to the next drain
+        # so a publish always lands at a drain's tail
+        self._carry: Request | Mutation | None = None
 
     # -- client API --------------------------------------------------------
 
@@ -247,7 +290,20 @@ class SearchServer:
 
     def submit_mutation(self, op: str, *, ds_id: int | None = None,
                         points=None) -> Future:
-        raise _live_lane("submit_mutation")
+        """Enqueue one live-repository mutation.  The Future resolves to the
+        slot id (ingest, replace) or None (delete) once the mutation is
+        published; every query drained behind it sees the new epoch."""
+        if self.live is None:
+            raise RuntimeError("mutation lane needs a live repository "
+                               "(SearchServer(live=...))")
+        if op not in MUTATION_OPS:
+            raise ValueError(f"unknown mutation {op!r}; mutation ops: "
+                             f"{MUTATION_OPS}")
+        if not self._running:
+            raise RuntimeError("server is not running (start() it first)")
+        mut = Mutation(op, ds_id=ds_id, points=points, t_submit=self.clock())
+        self._queue.put(mut)
+        return mut.future
 
     def start(self) -> "SearchServer":
         self._running = True
@@ -258,7 +314,12 @@ class SearchServer:
         self._running = False
         self._queue.put(None)          # wake the dispatcher
         self._thread.join(timeout=30)
-        # fail anything still queued, so no client Future waits forever
+        # fail anything still queued or carried, so no client Future waits
+        # forever
+        if self._carry is not None and not self._carry.future.done():
+            self._carry.future.set_exception(
+                RuntimeError("server stopped before request ran"))
+        self._carry = None
         while True:
             try:
                 req = self._queue.get_nowait()
@@ -267,6 +328,9 @@ class SearchServer:
             if req is not None and not req.future.done():
                 req.future.set_exception(
                     RuntimeError("server stopped before request ran"))
+        if self._prep_pool is not None:
+            self._prep_pool.shutdown(wait=True)
+            self._prep_pool = None
 
     # -- dispatcher --------------------------------------------------------
 
@@ -282,16 +346,24 @@ class SearchServer:
             return self.max_wait
         return min(self.max_wait, 0.5 * max(vals))
 
-    def _drain(self) -> list[Request]:
+    def _drain(self) -> list:
         """Block for the first request, then fill the batch: greedy takes,
         renewing straggler windows and a depth-scaled bound when adaptive;
-        a fixed max_wait deadline up to max_batch when static."""
-        try:
-            first = self._queue.get(timeout=0.1)
-        except queue.Empty:
-            return []
-        if first is None:
-            return []
+        a fixed max_wait deadline up to max_batch when static.
+
+        A drain closes at the first mutation -> query transition and carries
+        that query to the next drain, so it is at most one query segment
+        and a tail run of mutations: a segment split in two would pay a
+        second round of group dispatches."""
+        if self._carry is not None:
+            first, self._carry = self._carry, None
+        else:
+            try:
+                first = self._queue.get(timeout=0.1)
+            except queue.Empty:
+                return []
+            if first is None:
+                return []
         batch = [first]
         if self.adaptive:
             limit = self.max_batch
@@ -312,9 +384,28 @@ class SearchServer:
                         break
                 if req is None:
                     break
+                if (isinstance(batch[-1], Mutation)
+                        and not isinstance(req, Mutation)):
+                    self._carry = req
+                    break
                 batch.append(req)
                 # every arrival renews the straggler budget
                 waited = False
+            # absorb the run of mutations just past the drain bound (the
+            # first query after them is carried): their publish rides this
+            # drain's tail and their prepare overlaps this drain's segment
+            if not isinstance(batch[-1], Mutation) and self._carry is None:
+                while True:
+                    try:
+                        req = self._queue.get_nowait()
+                    except queue.Empty:
+                        break
+                    if req is None:
+                        break
+                    if not isinstance(req, Mutation):
+                        self._carry = req
+                        break
+                    batch.append(req)
             return batch
         deadline = self.clock() + self.max_wait
         while len(batch) < self.max_batch:
@@ -325,12 +416,63 @@ class SearchServer:
                 break
             if req is None:
                 break
+            if (isinstance(batch[-1], Mutation)
+                    and not isinstance(req, Mutation)):
+                self._carry = req
+                break
             batch.append(req)
         return batch
 
+    def _prepare_ahead(self, muts: list[Mutation]):
+        """Start the prepare stage (row builds, payload uploads) of the next
+        mutation run on the side thread, to overlap the query segment about
+        to be served.  Its launches go to the device's default stream, the
+        one the dispatcher thread uses, so stream order keeps them apart."""
+        if self._prep_pool is None:
+            self._prep_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="mutation-prepare")
+
+        def work():
+            t0 = self.clock()
+            group = self.live.prepare_group(
+                [(m.op, m.ds_id, m.points) for m in muts])
+            return group, t0, self.clock()
+
+        return self._prep_pool.submit(work)
+
+    def _publish_run(self, muts: list[Mutation], prepared) -> None:
+        """Install one coalesced run of mutations: join (or run here) its
+        prepare, book the host time it spent under the preceding segment,
+        publish the group as one epoch and resolve every future from the
+        per-item outcomes."""
+        try:
+            if prepared is not None:
+                group, tp0, tp1 = prepared.result()
+                s0, s1 = self._segment_span
+                self.engine.stats.prepare_overlap_seconds += max(
+                    0.0, min(tp1, s1) - max(tp0, s0))
+            else:
+                group = self.live.prepare_group(
+                    [(m.op, m.ds_id, m.points) for m in muts])
+            outcomes = self.live.publish_group(group)
+        except Exception as e:
+            # the dispatcher must survive: the run's futures carry it
+            for m in muts:
+                if not m.future.done():
+                    m.future.set_exception(e)
+            return
+        now = self.clock()
+        for m, out in zip(muts, outcomes):
+            if isinstance(out, Exception):
+                if not m.future.done():
+                    m.future.set_exception(out)
+            else:
+                self.stats.record_mutation(now - m.t_submit)
+                m.future.set_result(out)
+
     def _serve(self, batch: list[Request]) -> None:
-        """One declarative engine call for a drain; the planner groups
-        compatible rows into shared dispatches."""
+        """One declarative engine call for a query segment; the planner
+        groups compatible rows into shared dispatches."""
         try:
             results = self.engine.search([r.query for r in batch])
         except Exception:
@@ -364,8 +506,30 @@ class SearchServer:
     def _loop(self) -> None:
         while self._running:
             batch = self._drain()
-            if batch:
-                self._serve(batch)
+            if not batch:
+                continue
+            # alternating runs of queries and mutations: each query run is
+            # one engine call at the epoch of its stream position; each
+            # mutation run is one prepared group, prepared while the run
+            # before it is served and published as one epoch
+            runs: list[tuple[bool, list]] = []
+            for item in batch:
+                is_mut = isinstance(item, Mutation)
+                if runs and runs[-1][0] == is_mut:
+                    runs[-1][1].append(item)
+                else:
+                    runs.append((is_mut, [item]))
+            prepared = None
+            for i, (is_mut, items) in enumerate(runs):
+                if is_mut:
+                    self._publish_run(items, prepared)
+                    prepared = None
+                    continue
+                if i + 1 < len(runs) and runs[i + 1][0]:
+                    prepared = self._prepare_ahead(runs[i + 1][1])
+                t0 = self.clock()
+                self._serve(items)
+                self._segment_span = (t0, self.clock())
 
 
 # ---------------------------------------------------------------------------
@@ -380,13 +544,30 @@ def make_traffic(repo: Repository, datasets, n_requests: int, seed: int = 0,
     winners, ApproHaus -> NNP inside the winners, and top-k IA ->
     topk_overlap re-rank).  Payloads (signatures included) are built here,
     on the host, as a client would send ready-made queries.  The same seed
-    gives the same stream as the JAX package's ``make_traffic``."""
-    if mutate_every:
-        raise _live_lane("make_traffic(mutate_every>0)")
+    gives the same stream as the JAX package's ``make_traffic``.
+
+    ``mutate_every > 0`` makes every mutate_every-th position an ingest,
+    delete or replace, in turn, with ids that stay valid wherever the
+    stream drains: deletes take each id of [0, n_ds // 4) at most once,
+    replaces rotate over [n_ds // 4, n_ds // 2), ingests are jittered
+    copies (landing in freed or new slots), and point queries name ids of
+    [n_ds // 4, n_ds) only."""
     rng = np.random.default_rng(seed)
     n_ds = len(datasets)
     lo_g, hi_g = repo.space_lo.cpu(), repo.space_hi.cpu()
     eps = float(zorder.default_epsilon(lo_g, hi_g, 5))
+    del_pool = list(range(n_ds // 4)) if mutate_every else []
+    rep_pool = list(range(n_ds // 4, n_ds // 2)) if mutate_every else []
+
+    def q_id():
+        # with a mutation lane, never an id that may be deleted
+        if mutate_every and n_ds // 4 < n_ds:
+            return int(rng.integers(n_ds // 4, n_ds))
+        return int(rng.integers(n_ds))
+
+    def jittered():
+        base = datasets[int(rng.integers(n_ds))]
+        return (base + rng.normal(0, 0.5, base.shape)).astype(np.float32)
 
     def signature(q):
         pts = torch.from_numpy(np.asarray(q, np.float32))[None]
@@ -395,7 +576,19 @@ def make_traffic(repo: Repository, datasets, n_requests: int, seed: int = 0,
             np.uint32)
 
     out = []
+    n_mut = 0
     for i in range(n_requests):
+        if mutate_every and i and i % mutate_every == 0:
+            kind = n_mut % 3
+            n_mut += 1
+            if kind == 1 and del_pool:
+                out.append(("delete", dict(ds_id=del_pool.pop(0))))
+            elif kind == 2 and rep_pool:
+                sid = rep_pool[n_mut % len(rep_pool)]
+                out.append(("replace", dict(ds_id=sid, points=jittered())))
+            else:
+                out.append(("ingest", dict(points=jittered())))
+            continue
         c = rng.uniform(20, 80, 2).astype(np.float32)
         lo, hi = c - 2.0, c + 2.0
         kind = i % 12
@@ -413,11 +606,11 @@ def make_traffic(repo: Repository, datasets, n_requests: int, seed: int = 0,
             q = datasets[int(rng.integers(n_ds))][:64]
             out.append(("topk_hausdorff", dict(q=q, k=5)))
         elif kind == 5:
-            out.append(("range_points", dict(
-                ds_id=int(rng.integers(n_ds)), r_lo=lo, r_hi=hi)))
+            out.append(("range_points", dict(ds_id=q_id(), r_lo=lo,
+                                             r_hi=hi)))
         elif kind == 6:
             q = datasets[int(rng.integers(n_ds))][:64]
-            out.append(("nnp", dict(ds_id=int(rng.integers(n_ds)), q=q)))
+            out.append(("nnp", dict(ds_id=q_id(), q=q)))
         elif kind == 7:
             # dataset -> point: top-3 IA datasets, then RangeP inside each
             # winner (the ids never leave the device)
@@ -450,6 +643,7 @@ def make_traffic(repo: Repository, datasets, n_requests: int, seed: int = 0,
 def main(argv=None):
     from repro_torch.core.build import build_repository
     from repro_torch.data import synthetic
+    from repro_torch.engine.live import LiveRepository
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--requests", type=int, default=256)
@@ -469,28 +663,39 @@ def main(argv=None):
     ap.add_argument("--data-shards", type=int, default=None, metavar="D",
                     help=f"not ported ({MULTI_DEVICE_ITEM})")
     ap.add_argument("--live", action="store_true",
-                    help=f"not ported ({LIVE_ITEM})")
+                    help="serve from a mutable LiveRepository and open the "
+                         "mutation lane")
     ap.add_argument("--mutate-every", type=int, default=0, metavar="N",
-                    help=f"not ported ({LIVE_ITEM})")
+                    help="with --live: make every N-th request of the "
+                         "measured stream an ingest/delete/replace "
+                         "mutation (0 = queries only)")
     args = ap.parse_args(argv)
-    if args.live or args.mutate_every:
-        raise _live_lane("--live / --mutate-every")
     if args.sharded or args.replicas or args.data_shards is not None:
         raise NotImplementedError(
             f"--sharded / --replicas / --data-shards: multi-device engines "
             f"are not ported to repro_torch yet ({MULTI_DEVICE_ITEM})")
+    if args.mutate_every and not args.live:
+        ap.error("--mutate-every requires --live")
     dev = resolve_device(args.device)
 
     lake = synthetic.trajectory_repository(args.datasets, seed=0)
-    repo, _ = build_repository(lake, leaf_capacity=16, theta=5, device=dev)
-    engine = QueryEngine(repo)
-    server = SearchServer(engine, max_batch=args.max_batch,
+    live = None
+    if args.live:
+        live = LiveRepository(lake, leaf_capacity=16, theta=5, device=dev)
+        engine, repo = live.engine, live.repo
+        print(f"[serve_search] live repository: {live.n_slots} slots "
+              f"({len(live.live_ids)} live), mutation lane open")
+    else:
+        repo, _ = build_repository(lake, leaf_capacity=16, theta=5,
+                                   device=dev)
+        engine = QueryEngine(repo)
+    server = SearchServer(engine, live=live, max_batch=args.max_batch,
                           max_wait_ms=args.max_wait_ms,
                           adaptive=not args.static_window, device=dev)
 
-    # warm-up: the traffic once, queued before the dispatcher starts so
-    # the warm drains are as deep as the measured ones; then the result
-    # cache is dropped, so the measured requests run their dispatches
+    # warm-up: the query traffic once, queued before the dispatcher starts
+    # so the warm drains are as deep as the measured ones (queries only:
+    # the warm-up must not spend the stream's one-shot deletes)
     warm = [Request(op, _to_query(op, p))
             for op, p in make_traffic(repo, lake, args.requests)]
     for req in warm:
@@ -499,14 +704,37 @@ def main(argv=None):
     try:
         for req in warm:
             req.future.result(timeout=600)
+        if live is not None and args.mutate_every:
+            # warm the mutation path: an ingest (which may grow the tier),
+            # a replace, a delete, then coalesced groups of 2 and 4 (the
+            # publish buckets); every probe slot is deleted again, so the
+            # measured stream starts from the live set it expects
+            probe = (lake[0] + np.float32(0.25)).astype(np.float32)
+            wid = live.ingest(probe)
+            live.replace(wid, probe)
+            live.delete(wid)
+            for width in (2, 4):
+                sids = live.publish_group(live.prepare_group(
+                    [("ingest", None, probe + np.float32(i))
+                     for i in range(width)]))
+                live.publish_group(live.prepare_group(
+                    [("delete", sid, None) for sid in sids]))
+            live.bytes_uploaded = 0        # report the measured window only
+        # the result cache is dropped, so the measured requests dispatch
         engine._result_cache.clear()
         server.stats = ServerStats()       # report the measured window only
-        traffic = make_traffic(repo, lake, args.requests)
+        traffic = make_traffic(repo, lake, args.requests,
+                               mutate_every=args.mutate_every)
         h0 = engine.stats.result_cache_hits
         m0 = engine.stats.result_cache_misses
         d0 = engine.stats.dispatches
+        i0 = engine.stats.epoch_invalidations
+        p0 = len(engine.stats.publish_seconds)
+        mc0 = engine.stats.mutations_coalesced
+        ov0 = engine.stats.prepare_overlap_seconds
         t0 = time.perf_counter()
-        futures = [server.submit(op, **p) for op, p in traffic]
+        futures = [(server.submit_mutation(op, **p) if op in MUTATION_OPS
+                    else server.submit(op, **p)) for op, p in traffic]
         for f in futures:
             f.result(timeout=600)
         dt = time.perf_counter() - t0
@@ -528,6 +756,22 @@ def main(argv=None):
           f"{engine.stats.result_cache_hits - h0}/"
           f"{engine.stats.result_cache_misses - m0}, pipelines: "
           f"{engine.stats.pipeline_stage1}")
+    if live is not None:
+        st = engine.stats
+        n_pub = len(st.publish_seconds) - p0
+        print(f"[serve_search] mutation lane: {server.stats.mutations} "
+              f"applied, mean {server.stats.mean_mutation_ms:.1f} ms; "
+              f"epoch {live.epoch} (layout "
+              f"{live.engine.dispatch.repo_epoch}), "
+              f"{engine.stats.epoch_invalidations - i0} cached rows retired, "
+              f"{live.bytes_uploaded} bytes uploaded, "
+              f"{live.n_slots} slots ({len(live.live_ids)} live)")
+        print(f"[serve_search] publish pipeline: {n_pub} publishes "
+              f"(p50 {st.publish_percentile_ms(50, since=p0):.1f} / p99 "
+              f"{st.publish_percentile_ms(99, since=p0):.1f} ms), "
+              f"{engine.stats.mutations_coalesced - mc0} coalesced, "
+              f"{engine.stats.prepare_overlap_seconds - ov0:.3f} s of "
+              f"prepare host time under serving")
     return server.stats
 
 

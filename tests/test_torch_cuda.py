@@ -613,3 +613,68 @@ def test_server_on_card(cuda_device):
                 np.testing.assert_array_equal(a, b)
             else:
                 assert a == b
+
+
+def test_live_repository_on_card(cuda_device):
+    """The live repository on the card: after ingests (one crossing the
+    tier), a replace, a delete and a coalesced group, the resident
+    repository equals ``build_frozen`` bit for bit, and a mixed batch with
+    every op equals a cold engine over it (vals, ids, masks)."""
+    from repro_torch.engine import LiveRepository, Query, QueryEngine
+
+    rng = np.random.default_rng(12)
+
+    def mk(n):
+        return (rng.uniform(-40, 40, 2)
+                + rng.normal(size=(n, 2)) * 3).astype(np.float32)
+
+    live = LiveRepository([mk(int(n)) for n in rng.integers(20, 60, 12)],
+                          leaf_capacity=8, point_capacity=64,
+                          result_cache_size=64)
+    assert live.repo.device.type == "cuda" and live.n_slots == 16
+    for _ in range(5):
+        live.ingest(mk(40))
+    live.replace(3, mk(50))
+    live.delete(5)
+    live.publish_group(live.prepare_group(
+        [("ingest", None, mk(30)), ("replace", 0, mk(20)),
+         ("delete", 7, None), ("replace", 0, mk(25))]))
+    assert live.n_slots == 32 and live.engine.dispatch.repo_epoch == 1
+    frozen = live.frozen_repository()
+    for a, b in zip(bridge_leaves(live.repo), bridge_leaves(frozen)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    q = mk(24)
+    lo, hi = q.min(axis=0) - 5, q.max(axis=0) + 5
+    items = [Query(op="range_search", r_lo=lo, r_hi=hi),
+             Query(op="topk_ia", r_lo=lo, r_hi=hi, k=4),
+             Query(op="topk_gbo", q_sig=np.zeros(32, np.uint32), k=3),
+             Query(op="topk_hausdorff_approx", q=q, k=3, eps=1.0),
+             Query(op="topk_hausdorff", q=q, k=3),
+             Query(op="range_points", ds_id=2, r_lo=lo, r_hi=hi),
+             Query(op="nnp", ds_id=4, q=q),
+             Query(op="topk_overlap", q=q, k=3),
+             Query(op="topk_coverage", q=q, k=3)]
+    ops.reset_launches()
+    got = live.search(items)
+    assert ops.LAUNCHES["hausdorff_grid"] > 0
+    assert ops.LAUNCHES["set_intersect"] > 0
+    want = QueryEngine(frozen, leaf_capacity=8).search(items)
+    for g, w in zip(got, want):
+        for f in ("vals", "ids", "mask"):
+            a, b = getattr(g, f), getattr(w, f)
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def bridge_leaves(repo):
+    from repro_torch import bridge
+
+    def leaves(x):
+        if isinstance(x, tuple):
+            for y in x:
+                yield from leaves(y)
+        else:
+            yield x
+
+    return list(leaves(tuple(bridge.to_numpy(repo))))

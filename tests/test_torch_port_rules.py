@@ -21,7 +21,8 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.core.build import build_query_index, build_repository
-from repro_torch.engine import QueryEngine
+from repro_torch.core import repo_mutate
+from repro_torch.engine import LiveRepository, QueryEngine
 from repro_torch.kernels import (_build, bound_matrix, hausdorff,
                                  nn_distance, ops, set_intersect)
 from repro_torch.launch import serve_search
@@ -50,6 +51,8 @@ def test_port_imports_no_jax(path):
 def test_join_and_serving_modules_are_scanned():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"src/repro_torch/core/join_search.py",
+            "src/repro_torch/core/repo_mutate.py",
+            "src/repro_torch/engine/live.py",
             "src/repro_torch/launch/__init__.py",
             "src/repro_torch/launch/serve_search.py"} <= names
 
@@ -153,6 +156,14 @@ def test_entry_points_need_a_card_unless_told_cpu():
     repo, _ = build_repository(pts, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bridge.repository_to_torch(bridge.to_numpy(repo))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LiveRepository(pts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repo_mutate.init_live(pts)
+    live = LiveRepository(pts, device="cpu")
+    assert live.repo.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repo_mutate.build_frozen(live.slot_datasets(), live.geometry)
 
 
 def test_server_needs_a_card_unless_told_cpu():

@@ -5,9 +5,13 @@ kinds in one drain, each request's rows reaching its own future, the
 timeout flush of a partial batch, both drain policies, the injected clock,
 poisoned-row isolation and ``stop()`` failing queued requests.  Every
 served result is held against a direct ``QueryEngine.search`` of the same
-item.  The live lane and the multi-device options raise
-``NotImplementedError`` naming their ROADMAP items.  The traffic generator
-gives the JAX package's stream for the same seed.
+item.  The live lane (the live cases of ``tests/test_serve_search.py`` and
+``tests/test_mutation_properties.py``): each query segment is answered at
+its stream position, bitwise as a cold engine over the frozen build of
+that position, and adjacent mutations coalesce into one publish.  The
+multi-device options raise ``NotImplementedError`` naming their ROADMAP
+item.  The traffic generator gives the JAX package's stream for the same
+seed, with and without a mutation lane.
 """
 import time
 
@@ -17,12 +21,14 @@ import pytest
 from conftest import make_clustered_datasets
 from repro.launch import serve_search as jserve
 from repro_torch import bridge
+from repro_torch.core import repo_mutate
 from repro_torch.core.build import build_repository
-from repro_torch.engine import Query, QueryEngine
+from repro_torch.engine import LiveRepository, Query, QueryEngine
 from repro_torch.launch import serve_search
-from repro_torch.launch.serve_search import (OPS, Request, SearchServer,
-                                             _legacy_result, _to_query,
-                                             make_traffic)
+from repro_torch.launch.serve_search import (OPS, Mutation, Request,
+                                             SearchServer, _legacy_result,
+                                             _to_query, make_traffic)
+from test_torch_live import LEAF, POINT_CAP, _mixed_specs, _mk_dataset
 
 THETA = 5
 K = 4
@@ -296,13 +302,7 @@ def test_clock_injected_latency_accounting(env):
     assert server.stats.p99_ms == server.stats.p50_ms == 0.0
 
 
-def test_make_traffic_matches_jax(env):
-    """The same seed gives the JAX package's request stream: ops, boxes,
-    query sets, GBO signatures and eps."""
-    datasets, repo = env
-    got = make_traffic(repo, datasets, 36, seed=5)
-    want = jserve.make_traffic(bridge.to_numpy(repo), datasets, 36, seed=5)
-
+def _assert_same_stream(got, want):
     def same(a, b):
         if isinstance(b, dict):
             assert set(a) == set(b)
@@ -319,23 +319,38 @@ def test_make_traffic_matches_jax(env):
         same(a, b)
 
 
+def test_make_traffic_matches_jax(env):
+    """The same seed gives the JAX package's request stream: ops, boxes,
+    query sets, GBO signatures and eps."""
+    datasets, repo = env
+    _assert_same_stream(
+        make_traffic(repo, datasets, 36, seed=5),
+        jserve.make_traffic(bridge.to_numpy(repo), datasets, 36, seed=5))
+
+
+def test_make_traffic_mutation_lane_matches_jax(env):
+    """With ``mutate_every=4`` too: the same ingests, deletes and replaces
+    (ids and jittered points) at the same positions, and the same queries
+    around them."""
+    datasets, repo = env
+    got = make_traffic(repo, datasets, 36, seed=5, mutate_every=4)
+    _assert_same_stream(got, jserve.make_traffic(
+        bridge.to_numpy(repo), datasets, 36, seed=5, mutate_every=4))
+    assert [op for op, _ in got[4::4]] == [
+        "ingest", "delete", "replace"] * 2 + ["ingest", "delete"]
+
+
 @pytest.mark.parametrize("call,item", [
-    ("server_live", 11), ("submit_mutation", 11), ("traffic_mutate", 11),
-    ("--live", 11), ("--mutate-every", 11), ("--sharded", 12),
-    ("--replicas", 12), ("--data-shards", 12)])
+    ("--sharded", 12), ("--replicas", 12), ("--data-shards", 12),
+    ("live_mesh", 12)])
 def test_unported_lanes_name_their_item(env, call, item):
     datasets, repo = env
     match = f"ROADMAP.md queue 1 item {item}"
     with pytest.raises(NotImplementedError, match=match):
-        if call == "server_live":
-            SearchServer(QueryEngine(repo), live=object(), device="cpu")
-        elif call == "submit_mutation":
-            _server(QueryEngine(repo)).submit_mutation("delete", ds_id=0)
-        elif call == "traffic_mutate":
-            make_traffic(repo, datasets, 8, mutate_every=4)
+        if call == "live_mesh":
+            LiveRepository(datasets, mesh=object(), device="cpu")
         else:
-            arg = {"--replicas": ["2"], "--data-shards": ["2"],
-                   "--mutate-every": ["3"]}.get(call, [])
+            arg = {"--replicas": ["2"], "--data-shards": ["2"]}.get(call, [])
             serve_search.main(["--device", "cpu", "--datasets", "4", call,
                                *arg])
 
@@ -346,3 +361,223 @@ def test_main_serves_on_the_cpu_when_told(env, capsys):
     assert stats.requests == 24
     out = capsys.readouterr().out
     assert "[serve_search] device: cpu" in out
+
+
+def test_main_serves_a_live_stream_on_the_cpu(capsys):
+    stats = serve_search.main(["--device", "cpu", "--live", "--mutate-every",
+                               "8", "--requests", "24", "--datasets", "12"])
+    assert stats.requests == 22 and stats.mutations == 2
+    out = capsys.readouterr().out
+    assert "mutation lane: 2 applied" in out
+    with pytest.raises(SystemExit):
+        serve_search.main(["--device", "cpu", "--mutate-every", "8"])
+
+
+# -- live serving: the mutation lane ----------------------------------------
+
+
+def _leaves(res):
+    """A served response flattened to its arrays (stats dropped)."""
+    if isinstance(res, tuple) and not hasattr(res, "_fields"):
+        return [x for r in res for x in _leaves(r)]
+    return [res] if isinstance(res, np.ndarray) else []
+
+
+def _assert_segment(got, cold, queries):
+    """A served segment against the same items on a cold engine, array by
+    array and bit for bit."""
+    want = cold.search(queries)
+    for a, b in zip(got, want):
+        la, lb = _leaves(a), _leaves(_legacy_result(b))
+        assert len(la) == len(lb)
+        for x, y in zip(la, lb):
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
+
+
+def _cold(slots, geom):
+    return QueryEngine(repo_mutate.build_frozen(slots, geom, device="cpu"),
+                       leaf_capacity=geom.leaf_capacity)
+
+
+def test_server_coalesced_runs_fake_clock():
+    """The scheduler under an injected clock (virtual seconds, no sleeps):
+    a pre-filled drain [queries, M, M, queries, M, queries] answers every
+    segment at its stream position, the adjacent pair of mutations
+    coalesces into one publish whose prepare overlapped the segment before
+    it, and the publish and overlap accounting reads the fake clock."""
+
+    class _TickClock:
+        def __init__(self):
+            self.t = 0.0
+
+        def __call__(self):
+            self.t += 1.0
+            return self.t
+
+    rng = np.random.default_rng(17)
+    tick = _TickClock()
+    init = [_mk_dataset(rng) for _ in range(6)]
+    live = LiveRepository(init, leaf_capacity=LEAF, clock=tick,
+                          point_capacity=POINT_CAP, result_cache_size=64,
+                          device="cpu")
+    model = {j: init[j] for j in range(6)}
+
+    def seg():
+        # point targets avoid the id the stream deletes
+        qs = [Query(op=op, **kw)
+              for op, kw in _mixed_specs(rng, set(model) - {2})]
+        return [Request(q.op, q, t_submit=0.0) for q in qs]
+
+    d0, d1 = _mk_dataset(rng), _mk_dataset(rng)
+    segs = [seg(), seg(), seg()]
+    muts = [Mutation("ingest", points=d0, t_submit=0.0),
+            Mutation("replace", ds_id=1, points=d1, t_submit=0.0),
+            Mutation("delete", ds_id=2, t_submit=0.0)]
+    server = SearchServer(live=live, max_batch=64, max_wait_ms=250.0,
+                          clock=tick, device="cpu")
+    for item in (*segs[0], muts[0], muts[1], *segs[1], muts[2], *segs[2]):
+        server._queue.put(item)
+    server.start()
+    try:
+        got = [[r.future.result(timeout=WAIT) for r in s] for s in segs]
+        sid = muts[0].future.result(timeout=WAIT)
+        assert muts[1].future.result(timeout=WAIT) == 1
+        assert muts[2].future.result(timeout=WAIT) is None
+    finally:
+        server.stop()
+    assert not server._thread.is_alive()
+    assert sid == 6
+    assert live.epoch == 2
+    assert live.stats.mutations_coalesced == 1
+    assert len(live.stats.publish_seconds) == 2
+    assert server.stats.mutations == 3
+    assert all(t >= 1.0 for t in live.stats.publish_seconds)
+    assert live.stats.publish_p99_ms >= live.stats.publish_p50_ms >= 1e3
+    assert live.stats.prepare_overlap_seconds >= 0.0
+    assert all(t >= 1.0 for t in server.stats.mutation_latencies)
+
+    states = [dict(model)]
+    model[sid] = d0
+    model[1] = d1
+    states.append(dict(model))
+    del model[2]
+    states.append(dict(model))
+    assert live.live_ids == set(model)
+    for state, s, res in zip(states, segs, got):
+        _assert_segment(res, _cold([state.get(j) for j in range(
+            live.n_slots)], live.geometry), [r.query for r in s])
+
+
+def _segment_queries(ds_id, probe_lo, probe_hi):
+    """Three queries repeated verbatim in every segment, so a stale row of
+    an earlier epoch would be served if the epoch keys were broken; the
+    point probe's box hugs dataset ``ds_id``'s original points."""
+    lo = np.float32([20, 20])
+    return [
+        ("range_search", dict(r_lo=lo, r_hi=lo + 40.0)),
+        ("topk_ia", dict(q_lo=np.float32([-60, -60]),
+                         q_hi=np.float32([60, 60]), k=3)),
+        ("range_points", dict(ds_id=ds_id, r_lo=probe_lo, r_hi=probe_hi)),
+    ]
+
+
+def test_live_interleaved_mutation_drain():
+    """Mutations submitted mid-burst take effect at their stream position:
+    one pre-filled drain of [queries, replace, the same queries, ingest,
+    delete, the same queries]; each segment equals a cold engine over the
+    frozen build of its position, and the replaced dataset's probe
+    changes."""
+    datasets = make_clustered_datasets(10, seed=5, n_points=(20, 50))
+    live = LiveRepository(datasets, leaf_capacity=16, theta=THETA,
+                          result_cache_size=64, device="cpu")
+    n_slots = live.n_slots
+    new0 = datasets[0] + np.float32(30.0)          # visibly moved
+    fresh = datasets[3] + np.float32(7.0)
+    ingest_slot = min(set(range(n_slots)) - live.live_ids)
+    traffic = _segment_queries(
+        ds_id=0, probe_lo=datasets[0].min(0) - np.float32(1.0),
+        probe_hi=datasets[0].max(0) + np.float32(1.0))
+    reqs = [[Request(op, _to_query(op, p)) for op, p in traffic]
+            for _ in range(3)]
+    muts = [Mutation("replace", ds_id=0, points=new0),
+            Mutation("ingest", points=fresh),
+            Mutation("delete", ds_id=1)]
+    server = SearchServer(live=live, max_batch=64, max_wait_ms=250.0,
+                          device="cpu")
+    for item in (*reqs[0], muts[0], *reqs[1], muts[1], muts[2], *reqs[2]):
+        server._queue.put(item)
+    server.start()
+    try:
+        got = [[r.future.result(timeout=WAIT) for r in seg] for seg in reqs]
+        assert muts[0].future.result(timeout=WAIT) == 0
+        assert muts[1].future.result(timeout=WAIT) == ingest_slot
+        assert muts[2].future.result(timeout=WAIT) is None
+    finally:
+        server.stop()
+    # the adjacent ingest + delete coalesce into one publish; the replace,
+    # between queries, publishes alone
+    assert live.epoch == 2
+    assert server.stats.mutations == 3
+    assert live.stats.mutations_coalesced == 1
+    assert len(live.stats.publish_seconds) == 2
+
+    slots0 = list(datasets) + [None] * (n_slots - len(datasets))
+    slots1 = [new0] + slots0[1:]
+    queries = [_to_query(op, p) for op, p in traffic]
+    _assert_segment(got[0], _cold(slots0, live.geometry), queries)
+    _assert_segment(got[1], _cold(slots1, live.geometry), queries)
+    _assert_segment(got[2], QueryEngine(live.frozen_repository(),
+                                        leaf_capacity=16), queries)
+    assert not np.array_equal(got[0][2], got[1][2])
+
+
+def test_live_poisoned_row_fallback_and_lane_errors():
+    """A poisoned query sharing a drain with healthy queries and a mutation
+    fails only its own future: the mutation publishes, the healthy futures
+    resolve with post-mutation results and the dispatcher survives.  No
+    live repository: RuntimeError; an unknown mutation: ValueError; a
+    mutation that fails: only its own future."""
+    datasets = make_clustered_datasets(8, seed=9, n_points=(20, 40))
+    live = LiveRepository(datasets, leaf_capacity=16, theta=THETA,
+                          device="cpu")
+    fresh = datasets[4] + np.float32(4.0)
+    ingest_slot = min(set(range(live.n_slots)) - live.live_ids)
+    server = SearchServer(live=live, max_batch=16, max_wait_ms=200.0,
+                          device="cpu").start()
+    try:
+        with pytest.raises(ValueError):
+            server.submit_mutation("compact")
+        lo = np.float32([-200, -200])
+        good1 = server.submit("topk_ia", q_lo=lo, q_hi=-lo, k=3)
+        bad = server.submit("topk_ia", q_lo=np.zeros(3, np.float32),
+                            q_hi=np.ones(3, np.float32), k=3)
+        mfut = server.submit_mutation("ingest", points=fresh)
+        good2 = server.submit("range_search", r_lo=lo, r_hi=-lo)
+        assert good1.result(timeout=WAIT)[0].shape == (3,)
+        with pytest.raises(Exception):
+            bad.result(timeout=WAIT)
+        assert mfut.result(timeout=WAIT) == ingest_slot
+        mask = good2.result(timeout=WAIT)
+        bad_mut = server.submit_mutation("delete", ds_id=999)
+        with pytest.raises(KeyError):
+            bad_mut.result(timeout=WAIT)
+        after = server.submit("range_search", r_lo=lo, r_hi=-lo)
+        cold = QueryEngine(live.frozen_repository(), leaf_capacity=16)
+        want = cold.search([Query(op="range_search", r_lo=lo,
+                                  r_hi=-lo)])[0].mask
+        np.testing.assert_array_equal(after.result(timeout=WAIT), want)
+        assert mask[ingest_slot]               # good2 saw the ingest
+    finally:
+        server.stop()
+
+
+def test_mutation_lane_needs_live(env):
+    datasets, repo = env
+    server = _server(QueryEngine(repo), max_batch=8).start()
+    try:
+        with pytest.raises(RuntimeError):
+            server.submit_mutation("ingest", points=datasets[0])
+    finally:
+        server.stop()
+    with pytest.raises(ValueError):
+        SearchServer(device="cpu")
