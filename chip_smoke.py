@@ -90,9 +90,30 @@ Phases, each of which must pass (any failure raises and exits non-zero):
  13. tier growth: 12 trajectories in a 16-slot tier, six ingests past it,
      a delete and a replace; the slot count doubles, the layout epoch
      reads 1, and the repository and the every-op batch are bitwise equal
-     to the cold build.
+     to the cold build;
+ 14. multi-device dispatch on the phase-2 repository, every shard on the
+     one card (its device list printed first; so no multi-card speed is
+     measured): ExactHaus on a 4-shard and on a 3-shard (slot-padded)
+     ``data_mesh``, the mixed and join batches on the 4-shard mesh, the
+     ExactHaus and mixed batches and a batch of 1 on a (2, 2)
+     ``replica_mesh``, each through the path's ``search()`` as in phases
+     4, 6 and 9 (a warm-up pass keeping every kernel launch's operands, a
+     pass with the launch counters read around it, timed passes and one
+     under the profiler; latency, busy ms and peak memory printed beside
+     the local phase's, per-shard resident bytes beside total / N); gates:
+     results bitwise equal to the local phase's (vals, ids, masks),
+     ExactHaus's bound counters equal and ``evaluated <=
+     candidates_after_bounds``, one ``bound_grid`` launch per shard, and
+     every kept launch bitwise equal to its plain version at per-shard
+     shapes (a ``hausdorff_grid`` launch on the queries with a live lane);
+     then a served burst over the 4-shard engine (phase 11's gates), and
+     ``ring_hausdorff`` / ``ring_nn_distance`` on one dataset pair at 4
+     shards, bitwise equal to ``ops.directed_hausdorff_pairs`` and
+     ``ops.nn_distance_batched``, one launch per hop.
 
-The second-to-last line is the kernel table as JSON, the last line
+The second-to-last line is the kernel table as JSON (each row's
+``launches`` from the local path, ``sharded_launches`` per phase-14
+path), the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
@@ -478,15 +499,16 @@ def choose_eps(repo, search):
 @contextmanager
 def keep_operands(targets):
     """Within the block, each ``(module, name)`` function in ``targets``
-    keeps the arguments of every call in ``calls[name]``, then runs as
+    keeps the arguments of every call in ``calls[name]`` (the positional
+    tuple, or ``(args, kwargs)`` for a call with keywords), then runs as
     before (the kernel still launches and counts).  Yields ``calls``."""
     calls = {name: [] for _, name in targets}
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
     def keeping(fn, name):
-        def wrapper(*args):
-            calls[name].append(args)
-            return fn(*args)
+        def wrapper(*args, **kw):
+            calls[name].append((args, kw) if kw else args)
+            return fn(*args, **kw)
         return wrapper
 
     for mod, name, fn in saved:
@@ -1060,19 +1082,21 @@ def check_served(i, op, p, res, engine, serve_search,
     if op in ("topk_overlap", "topk_coverage"):
         s = res[2]
         check(0 < s.candidates_after_bounds <= s.exact_evaluations
-              <= int(engine.repo.ds_valid.sum()),
+              <= engine._n_valid,
               f"served request {i} ({op}): stats {s}")
         res, want = res[:2], want[:2]
     check(same_response(res, want), f"served request {i} ({op}) differs "
           f"from {what}")
 
 
-def serving_phase(engine, repo, datasets, ops, serve_search):
+def serving_phase(engine, repo, datasets, ops, serve_search,
+                  label="serving"):
     """Phase 11: ``SearchServer`` over the same engine, 256 requests of
     ``make_traffic(repo, datasets, 256, seed=0)`` at max_batch 64: one
     warm-up burst, then a measured burst with the launch counters read
     around it.  Every future resolves within a timeout, and each response
-    is bitwise equal to ``engine.search`` of its item."""
+    is bitwise equal to ``engine.search`` of its item.  Phase 14 runs it
+    again over a sharded engine, under another ``label``."""
     traffic = serve_search.make_traffic(repo, datasets, N_REQUESTS, seed=0)
     server = serve_search.SearchServer(engine, max_batch=64)
     server.start()
@@ -1097,13 +1121,13 @@ def serving_phase(engine, repo, datasets, ops, serve_search):
                "p99_ms": st.p99_ms, "mean_latency_ms": st.mean_latency_ms,
                "dispatch_groups": st.batches,
                "mean_batch": st.mean_batch, "launches": launches}
-    log("serving: " + json.dumps(summary))
+    log(f"{label}: " + json.dumps(summary))
     for name in ("set_intersect", "bound_grid", "hausdorff_grid",
                  "bound_row_ub"):
-        check(launches[name] > 0, f"serving launched no {name}")
+        check(launches[name] > 0, f"{label} launched no {name}")
     for i, ((op, p), res) in enumerate(zip(traffic, got)):
         check_served(i, op, p, res, engine, serve_search)
-    log(f"gates: {N_REQUESTS} served responses bitwise equal to "
+    log(f"gates ({label}): {N_REQUESTS} served responses bitwise equal to "
         f"engine.search of each item (joinable: vals and ids)")
     return summary
 
@@ -1389,12 +1413,291 @@ def growth_phase(datasets, items, ops):
         f"{live.epoch}; repository and a batch of {len(small)} bitwise "
         f"equal to the cold build; launches {json.dumps(dict(ops.LAUNCHES))}")
 
+# ---------------------------------------------------------------------------
+# phase 14: multi-device dispatch, every shard on the one card
+# ---------------------------------------------------------------------------
+
+#: shards of the sharded phases' even and uneven (slot-padded) meshes, and
+#: the (replica, data) grid of the replicated phase
+SHARDS = 4
+SHARDS_UNEVEN = 3
+GRID = (2, 2)
+
+
+def kernel_targets():
+    """The kernel wrappers a sharded path may launch, for keep_operands."""
+    from repro_torch.kernels import (bound_matrix, hausdorff, nn_distance,
+                                     ops, set_intersect)
+    return [(ops, "directed_hausdorff_lanes"), (bound_matrix, "bound_grid"),
+            (bound_matrix, "bound_row_ub"),
+            (set_intersect, "intersect_counts"),
+            (hausdorff, "min_sq_dists_pairs"),
+            (nn_distance, "nn_distance_batched")]
+
+
+#: launch counter of each kept wrapper
+KEPT_KERNEL = {"directed_hausdorff_lanes": "hausdorff_grid",
+               "bound_grid": "bound_grid", "bound_row_ub": "bound_row_ub",
+               "intersect_counts": "set_intersect",
+               "min_sq_dists_pairs": "min_sq_dists",
+               "nn_distance_batched": "nn_distance"}
+
+
+def check_kept(label, calls):
+    """Every kept launch of a sharded path, launched again on its operands
+    and held bitwise against its plain version.  A lanes launch is
+    compared on the queries with a live lane (a query's lanes are
+    independent of the others', and the rest must come back BIG), so the
+    plain version does the live work only.  Returns the checked count per
+    kernel."""
+    from repro_torch.kernels import (bound_matrix, hausdorff, nn_distance,
+                                     ops, ref, set_intersect)
+    checked = {}
+    for name, kept in calls.items():
+        for i, a in enumerate(kept):
+            if name == "directed_hausdorff_lanes":
+                q_c, n_q, pts, pv, extent, ids, live = a
+                got = hausdorff.hausdorff_lanes(*a)
+                act = live.any(dim=-1)
+                want = ops.directed_hausdorff_lanes_plain(
+                    q_c[act], n_q[act], pts, pv, extent, ids[act], live[act])
+                ok = (bits_equal(got[act], want)
+                      and bool((got[~act] == ref.BIG).all()))
+            elif name == "bound_grid":
+                args, kw = a
+                ok = bits_equal(
+                    torch.stack(bound_matrix.bound_grid(*args, **kw)),
+                    torch.stack(ref.frontier_bound_levels(*args,
+                                                          kw["levels"])))
+            elif name == "bound_row_ub":
+                ok = bits_equal(bound_matrix.bound_row_ub(*a),
+                                ref.bound_row_ub(*a))
+            elif name == "intersect_counts":
+                ok = torch.equal(set_intersect.intersect_counts(*a),
+                                 ref.set_intersect_count(*a))
+            elif name == "min_sq_dists_pairs":
+                ok = bits_equal(hausdorff.min_sq_dists_pairs(*a),
+                                ref.min_sq_dists_pairs(*a))
+            else:
+                gd, gi = nn_distance.nn_distance_batched(*a)
+                wd, wi = ref.nn_distance_batched(*a)
+                ok = bits_equal(gd, wd) and torch.equal(gi, wi)
+            check(ok, f"{label}: kept {KEPT_KERNEL[name]} launch {i} of "
+                  f"{len(kept)} differs from its plain version")
+            checked[KEPT_KERNEL[name]] = checked.get(KEPT_KERNEL[name], 0) + 1
+    torch.cuda.synchronize()
+    return checked
+
+
+def mesh_path(label, engine, items, want, reps, ops, local):
+    """One path through a mesh engine: a warm-up pass that keeps every
+    kernel launch's operands, a pass with the launch counters set to 0
+    just before it and read just after, more timed passes and one under
+    the profiler; its results bitwise equal to the local phase's
+    (``want``: vals, ids, masks), every kept launch bitwise equal to its
+    plain version.  ``local`` holds the local phase's latency, busy ms and
+    peak memory, printed beside.  Returns (results, summary, kept)."""
+    with keep_operands(kernel_targets()) as calls:
+        res, warm_s = sync_time(lambda: engine.search(items))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res, first_s = sync_time(lambda: engine.search(items))
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    times = [first_s]
+    for _ in range(reps - 1):
+        again, t = sync_time(lambda: engine.search(items))
+        times.append(t)
+        check(results_bitwise(again, res), f"{label}: repeat pass differs")
+    check(results_bitwise(res, want), f"{label}: results differ from the "
+          f"local engine's (vals, ids, masks)")
+    for name, kept in calls.items():
+        check(len(kept) == launches[KEPT_KERNEL[name]],
+              f"{label}: the warm-up kept {len(kept)} "
+              f"{KEPT_KERNEL[name]} launches, the counted pass made "
+              f"{launches[KEPT_KERNEL[name]]}")
+    summary = {"items": len(items), "warmup_s": warm_s,
+               "batch_latency_s": float(np.mean(times)),
+               "batch_latency_all_s": times,
+               "local_batch_latency_s": local["latency_s"],
+               "max_memory_allocated": peak,
+               "local_max_memory_allocated": local["peak"],
+               "launches_per_search": launches}
+    per_name, busy_ms, wall_ms = device_profile(lambda: engine.search(items))
+    if per_name:
+        summary.update({"device_busy_ms": busy_ms,
+                        "local_device_busy_ms": local["busy_ms"],
+                        "device_idle_share": 1.0 - busy_ms / wall_ms})
+    else:
+        summary["device_profile"] = "not measured (no device work seen)"
+    summary["kept_launches_checked"] = check_kept(label, calls)
+    log(f"{label}: " + json.dumps(summary))
+    return res, summary, calls
+
+
+def lanes_per_search(calls):
+    """The kept ``hausdorff_grid`` launches of one sharded search replayed
+    under CUDA events, beside the least time of their live, valid work
+    (each shard's valid counts from its own corpus)."""
+    from repro_torch.kernels import hausdorff
+    nvalid = {}
+    bound = 0.0
+    for a in calls:
+        key = a[3].data_ptr()
+        if key not in nvalid:
+            nvalid[key] = a[3].sum(dim=-1, dtype=torch.int64)
+        bound += least_ms(*lanes_work(a, nvalid[key]))[0]
+    ms = event_ms(lambda: [hausdorff.hausdorff_lanes(*a) for a in calls], 3,
+                  1)
+    return {"ms_per_search": ms, "bound_ms_per_search": bound,
+            "launches": len(calls),
+            "live_lanes": sum(int(a[6].sum()) for a in calls)}
+
+
+def shard_bytes(engine, repo):
+    """Each shard's resident bytes beside total / N (the slot slices) plus
+    the upper tree and space bounds every shard holds whole."""
+    from repro_torch.engine.sharded import repo_device_bytes
+    shards = (engine.dispatch.shards if hasattr(engine.dispatch, "shards")
+              else engine.dispatch.groups[0].shards)
+    n = len(shards)
+    replicated = nbytes(*repo.repo, repo.space_lo, repo.space_hi)
+    per = repo_device_bytes(shards)
+    pad = shards[0].n_slots * n - repo.n_slots
+    slot_bytes = repo.nbytes() - replicated
+    return {"per_shard_bytes": per, "total_bytes": repo.nbytes(),
+            "slot_bytes_over_n": slot_bytes / n,
+            "replicated_bytes": replicated, "padded_slots": pad}
+
+
+def ring_phase(q_np, d_np, ops, distributed, mesh):
+    """The ring ops on one dataset pair, both point sets split over the
+    mesh's shards: ``ring_hausdorff`` bitwise equal to
+    ``ops.directed_hausdorff_pairs`` and ``ring_nn_distance`` to
+    ``ops.nn_distance_batched`` (distances and ids), every hop's launch
+    kept and held against its plain version."""
+    n = len(mesh.flat)
+    dev = mesh.lead
+
+    def padded(x):
+        m = -x.shape[0] % n
+        pts = torch.as_tensor(np.concatenate([x, np.zeros((m, 2),
+                                                          np.float32)]))
+        val = torch.arange(pts.shape[0]) < x.shape[0]
+        return pts.to(dev), val.to(dev)
+
+    q, qv = padded(q_np)
+    d, dv = padded(d_np)
+    want_h = ops.directed_hausdorff_pairs(q, d[None], qv, dv[None])[0]
+    want_d, want_i = ops.nn_distance_batched(q[None], d[None], qv[None],
+                                             dv[None])
+    parts = [distributed.shard(x, mesh.flat) for x in (q, qv, d, dv)]
+    ops.reset_launches()
+    with keep_operands(kernel_targets()) as calls:
+        h = distributed.ring_hausdorff(*parts)
+        nn = distributed.ring_nn_distance(*parts)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    got_d = torch.cat([x for x, _ in nn])
+    got_i = torch.cat([i for _, i in nn])
+    check(bits_equal(h, want_h), "ring_hausdorff differs from "
+          "ops.directed_hausdorff_pairs")
+    check(bits_equal(got_d, want_d[0]) and torch.equal(got_i, want_i[0]),
+          "ring_nn_distance differs from ops.nn_distance_batched")
+    check(launches.get("min_sq_dists") == n * n
+          and launches.get("nn_distance") == n * n,
+          f"ring ops: launches {launches}, not {n * n} hops each")
+    checked = check_kept("ring ops", calls)
+    log("ring ops: " + json.dumps({
+        "shards": n, "nq": q.shape[0], "nd": d.shape[0],
+        "hausdorff": float(h), "launches": launches,
+        "kept_launches_checked": checked}))
+
+
+def multi_device_phase(repo, datasets, q_sets, queries, local, reps, ops,
+                       serve_search):
+    """Phase 14: the sharded and replicated engines over the same
+    repository, every shard on the one card (so no multi-card speed is
+    measured here).  ExactHaus on a 4-shard and a 3-shard (slot-padded)
+    mesh, the mixed and join batches on the 4-shard mesh, the ExactHaus
+    and mixed batches and a batch of 1 on a (2, 2) replica grid, a served
+    burst over the 4-shard engine and the ring ops: each bitwise equal to
+    the local phases' results, each kept kernel launch to its plain
+    version.  ``local`` holds, per local phase ("exact", "mixed",
+    "joins"), its items, results, latency, busy ms and peak memory."""
+    from repro_torch.core import distributed
+    from repro_torch.engine import (ReplicatedQueryEngine,
+                                    ShardedQueryEngine, data_mesh,
+                                    replica_mesh)
+
+    card = repo.device
+    t0 = time.perf_counter()
+    out = {}
+    for n in (SHARDS, SHARDS_UNEVEN):
+        mesh = data_mesh(devices=[card] * n)
+        log(f"mesh ({n} shards): devices {[str(x) for x in mesh.flat]}")
+        engine = ShardedQueryEngine(repo, mesh=mesh, result_cache_size=0)
+        log(f"sharded engine ({n} shards): " + json.dumps(
+            shard_bytes(engine, repo)))
+        label = f"sharded ExactHaus ({n} shards)"
+        res, summary, calls = mesh_path(label, engine, queries,
+                                        local["exact"]["results"], reps,
+                                        ops, local["exact"])
+        for r, w in zip(res, local["exact"]["results"]):
+            check(r.stats.exact_evaluations
+                  <= r.stats.candidates_after_bounds
+                  and r.stats[:2] == w.stats[:2],
+                  f"{label}: stats {r.stats} against local {w.stats}")
+        launches = summary["launches_per_search"]
+        check(launches["bound_grid"] == n and launches["hausdorff_grid"] > 0,
+              f"{label}: launches {launches}")
+        lanes = lanes_per_search(calls["directed_hausdorff_lanes"])
+        log(f"{label} hausdorff_grid per search: " + json.dumps(lanes))
+        out[f"exact_{n}"] = dict(summary, hausdorff_grid=lanes)
+        del calls
+        if n != SHARDS:
+            del engine
+            continue
+        for key, what in (("mixed", "mixed batch"), ("joins", "join batch")):
+            items, want = local[key]["items"], local[key]["results"]
+            _, summary, calls = mesh_path(f"sharded {what} ({n} shards)",
+                                          engine, items, want, reps, ops,
+                                          local[key])
+            out[f"{key}_{n}"] = summary
+            del calls
+        serving_phase(engine, repo, datasets, ops, serve_search,
+                      label=f"sharded serving ({n} shards)")
+        del engine
+
+    R, D = GRID
+    mesh = replica_mesh(R, D, [card] * (R * D))
+    log(f"replica grid {GRID}: devices {[str(x) for x in mesh.flat]}")
+    engine = ReplicatedQueryEngine(repo, mesh=mesh, result_cache_size=0)
+    alone = {"latency_s": None, "peak": None, "busy_ms": None}
+    for key, items, want in (
+            ("exact", queries, local["exact"]["results"]),
+            ("mixed", local["mixed"]["items"], local["mixed"]["results"]),
+            ("one", queries[:1], local["exact"]["results"][:1])):
+        # a batch of 1 on R = 2 groups: the second runs a copy of row 0
+        _, summary, calls = mesh_path(f"replicated {key} {GRID}", engine,
+                                      items, want, reps, ops,
+                                      local.get(key, alone))
+        out[f"replicated_{key}"] = summary
+        del calls
+    check(engine.stats.replica_subgroups >= engine.stats.plan_groups,
+          "replica accounting")
+    del engine
+    ring_phase(q_sets[0], datasets[0], ops, distributed,
+               data_mesh(devices=[card] * SHARDS))
+    log(f"multi-device phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
 
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
         return 2
     k, reps = 10, 3
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1579,6 +1882,9 @@ def main() -> int:
 
     # one more pass, under the profiler: where the device time goes
     per_name, busy_ms, wall_ms = device_profile(lambda: engine.search(queries))
+    local = {"exact": {"results": res, "latency_s": lat,
+                       "peak": main["max_memory_allocated"],
+                       "busy_ms": busy_ms if per_name else None}}
     if not per_name:
         log("device profile: not measured (the profiler saw no device work)")
     else:
@@ -1671,6 +1977,10 @@ def main() -> int:
     log("dataset/point path: " + json.dumps(summary))
     # one more pass, under the profiler: where the device time goes
     per_name, busy_ms, wall_ms = device_profile(lambda: engine.search(items))
+    local["mixed"] = {"items": items, "results": res2,
+                      "latency_s": summary["batch_latency_s"],
+                      "peak": summary["max_memory_allocated"],
+                      "busy_ms": busy_ms if per_name else None}
     if not per_name:
         log("dataset/point device profile: not measured (the profiler saw "
             "no device work)")
@@ -1724,6 +2034,10 @@ def main() -> int:
     j_summary["set_intersect_launches_by_kind"] = {
         kd: kinds.count(kd) for kd in sorted(set(kinds))}
     log("join path: " + json.dumps(j_summary))
+    local["joins"] = {"items": j_items, "results": res_j,
+                      "latency_s": j_summary["batch_latency_median_s"],
+                      "peak": j_summary["max_memory_allocated"],
+                      "busy_ms": j_summary.get("device_busy_ms")}
     check(j_launches["set_intersect"] > 0,
           "the join batch launched no set_intersect")
     join_gates(repo, res_j, q_sets, lo, hi, res, res2, join_search)
@@ -1747,9 +2061,17 @@ def main() -> int:
     growth_phase(datasets, mixed_all_ops(q_sets, lo, hi, sig_np, eps,
                                          (4, 6, 8, 10), Query), ops)
 
+    # ---- 14. multi-device dispatch, every shard on the one card --------
+    mesh_out = multi_device_phase(repo, datasets, q_sets, queries, local,
+                                  reps, ops, serve_search)
+
     for r in rows:
         r["launches"] = launches[r["name"]]
+        r["sharded_launches"] = {
+            path: s["launches_per_search"][r["name"]]
+            for path, s in mesh_out.items()}
     rows += j_rows
+    log(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

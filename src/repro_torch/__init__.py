@@ -1,6 +1,7 @@
 """Spadas on PyTorch: the unified multi-granularity spatial index and its
 dataset and point searches (RangeS, top-k IA, GBO, ApproHaus and ExactHaus;
-RangeP, NNP; dataset->point pipelines), on one NVIDIA H100.
+RangeP, NNP; dataset->point pipelines), on NVIDIA H100s: one card, or a
+mesh of devices whose shards each hold a slice of the repository.
 
 A port of the JAX package ``repro`` that keeps its module layout, so each
 function here has a counterpart of the same name there.  It imports

@@ -1,6 +1,6 @@
 """Joinable dataset search: grid-cell overlap and coverage over the repository.
 
-Counterpart of ``repro.core.join_search`` for one device.  The resemblance
+Counterpart of ``repro.core.join_search``.  The resemblance
 ops rank datasets by how similar they are to the query; the joinable ops
 rank them by how well they join with it on a shared spatial grid:
 
@@ -33,8 +33,10 @@ the slot bounds, the upper tree's node bounds (every level in one launch;
 the JAX package's ``_plane_dot`` and ``sig_intersect_count`` per level are
 this launch's plain version), and one per refine chunk.  The refine is a
 Python loop over device tensors with one host read per chunk, the
-counterpart of the JAX package's ``lax.while_loop``.  The ``axis=``
-(sharded) form is not ported: multi-device dispatch is a later slice.
+counterpart of the JAX package's ``lax.while_loop``.  Its sharded form
+(the JAX package's ``axis=``) is ``topk_join_scores_shards``: the same
+loop in lockstep over the shards of a repository, which the local engine
+runs with one shard.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import zorder
+from repro_torch.core import distributed, zorder
 from repro_torch.core.repo_index import Repository
 from repro_torch.core.search import SearchStats
 from repro_torch.kernels import ops
@@ -162,7 +164,7 @@ def slot_fine_sigs(points, valid, lo, hi, theta_f: int):
 def topk_join_scores(repo: Repository, q_pts, q_val, k: int, mode: str,
                      chunk: int):
     """Bound phase and shared-order chunked exact refine for a (B, n, d)
-    query batch.
+    query batch: :func:`topk_join_scores_shards` with one shard.
 
     Slots are refined in one order for the whole batch, descending
     max-over-queries upper bound, ``chunk`` at a time: each chunk's fine
@@ -175,72 +177,121 @@ def topk_join_scores(repo: Repository, q_pts, q_val, k: int, mode: str,
     (B,) the frontier accounting at the final tau; cand_after (B,) the
     slots whose bound survives it; evaluated (B,) the exact evaluations.
     """
+    exacts, nodes, cand, evaluated = topk_join_scores_shards(
+        [repo], q_pts, q_val, k, mode, chunk)
+    return exacts[0], nodes, cand, evaluated
+
+
+def _kth_largest(exacts, k: int):
+    """Each query's kth-largest exact score over the shards (ints: any
+    selection is exact); with one shard the local ``topk``."""
+    if len(exacts) == 1:
+        e = exacts[0]
+        return torch.topk(e, min(k, e.shape[-1]), dim=-1).values[:, -1]
+    return -distributed.global_kth_smallest([-e for e in exacts], k)
+
+
+def topk_join_scores_shards(shards, q_pts, q_val, k: int, mode: str,
+                            chunk: int):
+    """The joinable bound phase and refine over a repository split into
+    shards (a list of :class:`Repository`, the upper tree and space bounds
+    on every shard's device; the local engine passes one), in lockstep.
+
+    Each shard orders its own slots (descending max-over-queries bound)
+    and refines its own chunks.  After every step each query's integer
+    tau is the kth largest exact score over all shards
+    (``distributed.global_kth_smallest`` of the negated scores, as the
+    JAX package's sharded form does) and each shard re-tests its own
+    remaining bounds: one host read per step for the whole mesh.  Query
+    features are built once, on the first shard's device (q_pts / q_val
+    live there).  Scores are exact ints, so the merged top-k is the same
+    under any split; only ``evaluated`` depends on it.  Shard-padded
+    slots are invalid, bound -1 and are never evaluated.
+
+    Returns (per-shard exact (B, S_shard), nodes (B,), cand_after (B,),
+    evaluated (B,)), the counters summed over the shards."""
     _check_mode(mode)
-    lo, hi = repo.space_lo, repo.space_hi
-    theta_c, theta_f = join_thetas(repo)
+    lead = shards[0]
+    theta_c, theta_f = join_thetas(lead)
     r2 = 1 << (2 * FINE_DELTA)
     B = q_pts.shape[0]
-    S = repo.n_slots
-    dev = q_pts.device
-    feats = query_features(q_pts, q_val, lo, hi, theta_c, theta_f, mode)
+    feats = query_features(q_pts, q_val, lead.space_lo, lead.space_hi,
+                           theta_c, theta_f, mode)
 
-    ub = _slot_bounds(repo, feats, mode, r2)                   # (B, S)
+    states = []
+    for sh in shards:
+        dev = sh.device
+        f = {name: x.to(dev) for name, x in feats.items()}
+        ub = _slot_bounds(sh, f, mode, r2)                     # (B, S)
+        S = sh.n_slots
+        # one shared order for the batch, descending max-over-queries
+        # bound (stable: ties keep slot order), padded with slot 0
+        order = torch.sort(-ub.amax(dim=0), stable=True).indices
+        n_chunks = max(1, -(-S // chunk))
+        s_pad = n_chunks * chunk
+        order_p = F.pad(order, (0, s_pad - S))
+        in_range = torch.arange(s_pad, device=dev) < S
+        ub_sorted = torch.where(in_range[None, :], ub[:, order_p], -1)
+        chunk_max = ub_sorted.reshape(B, n_chunks, chunk).amax(dim=-1)
+        # suffix max over chunks: the best bound any later slot can offer
+        suff = torch.flip(torch.cummax(torch.flip(chunk_max, [1]),
+                                       dim=1).values, [1])  # (B, chunks)
+        states.append({
+            "sh": sh, "f": f, "ub": ub, "S": S, "n_chunks": n_chunks,
+            "order": order_p, "suff": suff, "pos": 0,
+            "lanes": torch.arange(chunk, device=dev),
+            "exact": torch.full((B, S), -1, dtype=torch.int32, device=dev),
+            "evaluated": torch.zeros((B,), dtype=torch.int32, device=dev)})
 
-    # one shared order for the batch, descending max-over-queries bound
-    # (stable: ties keep slot order), padded with slot 0
-    order = torch.sort(-ub.amax(dim=0), stable=True).indices
-    n_chunks = max(1, -(-S // chunk))
-    s_pad = n_chunks * chunk
-    order_p = F.pad(order, (0, s_pad - S))
-    in_range = torch.arange(s_pad, device=dev) < S
-    ub_sorted = torch.where(in_range[None, :], ub[:, order_p], -1)
-    chunk_max = ub_sorted.reshape(B, n_chunks, chunk).amax(dim=-1)
-    # suffix max over chunks: the best bound any later slot can offer
-    suff = torch.flip(torch.cummax(torch.flip(chunk_max, [1]), dim=1).values,
-                      [1])                                     # (B, chunks)
-
-    ds_pts, ds_val = repo.ds_index.points, repo.ds_index.valid
-    k_eff = min(k, S)
-
-    def need(pos: int, tau_c):
+    def need(st, tau_c):
         # valid slots have bounds >= 0, so flooring tau at 0 both skips
         # invalid-only suffixes and keeps every unpruned valid slot
-        if pos >= n_chunks:
+        dev = st["exact"].device
+        if st["pos"] >= st["n_chunks"]:
             return torch.zeros((B,), dtype=torch.bool, device=dev)
-        return suff[:, pos] >= torch.clamp_min(tau_c, 0)
+        return st["suff"][:, st["pos"]] >= torch.clamp_min(tau_c.to(dev), 0)
 
-    exact = torch.full((B, S), -1, dtype=torch.int32, device=dev)
-    tau = torch.full((B,), -1, dtype=torch.int32, device=dev)
-    evaluated = torch.zeros((B,), dtype=torch.int32, device=dev)
-    lanes = torch.arange(chunk, device=dev)
-    pos = 0
-    nb = need(pos, tau)
-    while bool(nb.any()):                  # one host read per chunk
-        ids = order_p[pos * chunk:(pos + 1) * chunk]
-        sigs = slot_fine_sigs(ds_pts[ids], ds_val[ids], lo, hi, theta_f)
-        if mode == "overlap":
-            sc = ops.set_intersect_counts(feats["fsig"], sigs)
-        else:
-            sc = ops.plane_weighted_intersect(feats["fplanes"], sigs)
-        live = (((pos * chunk + lanes) < S) & repo.ds_valid[ids])[None, :] \
-            & nb[:, None]
-        sc = torch.where(live, sc, -1)
-        # a max merge: the padded tail names slot 0 again with -1
-        exact.scatter_reduce_(1, ids[None, :].expand(B, chunk), sc, "amax",
-                              include_self=True)
-        evaluated += live.sum(dim=-1, dtype=torch.int32)
-        pos += 1
+    tau = torch.full((B,), -1, dtype=torch.int32, device=q_pts.device)
+    nbs = [need(st, tau) for st in states]
+    while True:
+        flags = distributed.any_per_shard(nbs)   # one host read per chunk
+        if not any(flags):
+            break
+        for st, nb, flag in zip(states, nbs, flags):
+            if not flag:
+                continue
+            sh, pos, f = st["sh"], st["pos"], st["f"]
+            ids = st["order"][pos * chunk:(pos + 1) * chunk]
+            sigs = slot_fine_sigs(sh.ds_index.points[ids],
+                                  sh.ds_index.valid[ids], sh.space_lo,
+                                  sh.space_hi, theta_f)
+            if mode == "overlap":
+                sc = ops.set_intersect_counts(f["fsig"], sigs)
+            else:
+                sc = ops.plane_weighted_intersect(f["fplanes"], sigs)
+            live = ((((pos * chunk + st["lanes"]) < st["S"])
+                     & sh.ds_valid[ids])[None, :] & nb[:, None])
+            sc = torch.where(live, sc, -1)
+            # a max merge: the padded tail names slot 0 again with -1
+            st["exact"].scatter_reduce_(1, ids[None, :].expand(B, chunk), sc,
+                                        "amax", include_self=True)
+            st["evaluated"] += live.sum(dim=-1, dtype=torch.int32)
+            st["pos"] = pos + 1
         # only a full top-k of true scores may raise tau: the kth largest
         # of an evaluated subset is <= the true kth value
-        kth = torch.topk(exact, k_eff, dim=-1).values[:, -1]
-        n_fin = (exact >= 0).sum(dim=-1)
+        exacts = [st["exact"] for st in states]
+        kth = _kth_largest(exacts, k)
+        n_fin = distributed.psum_int([(e >= 0).sum(dim=-1) for e in exacts])
         tau = torch.maximum(tau, torch.where(n_fin >= k, kth, -1))
-        nb = need(pos, tau)
+        nbs = [need(st, tau) for st in states]
 
-    floor = torch.clamp_min(tau, 0)[:, None]
-    cand = ((ub >= floor) & (ub >= 0)).sum(dim=-1, dtype=torch.int32)
-    nodes = _node_frontier(repo, feats, tau, mode, r2)
-    return exact, nodes, cand, evaluated
+    cand = distributed.psum_int([
+        ((st["ub"] >= torch.clamp_min(tau.to(st["ub"].device), 0)[:, None])
+         & (st["ub"] >= 0)).sum(dim=-1, dtype=torch.int32)
+        for st in states])
+    nodes = _node_frontier(lead, feats, tau, mode, r2)
+    evaluated = distributed.psum_int([st["evaluated"] for st in states])
+    return [st["exact"] for st in states], nodes, cand, evaluated
 
 
 def pair_scores(repo: Repository, d_points, d_valid, q_pts, q_val,

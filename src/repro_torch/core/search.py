@@ -1,6 +1,6 @@
 """Search layer (paper Section VI): the dataset-granularity operations.
 
-Counterpart of ``repro.core.search``, single device:
+Counterpart of ``repro.core.search``:
 
   * RangeS          (Def. 9)  level-synchronous traversal of the upper tree;
   * top-k IA        (Def. 6)  one dense box-algebra pass plus a top-k;
@@ -22,7 +22,11 @@ Counterpart of ``repro.core.search``, single device:
                   exact values after every chunk.
 
 JAX's ``lax.while_loop`` becomes a Python loop over device tensors with one
-host sync per chunk (the "any query has work" test).  ``topk_hausdorff_host``
+host sync per chunk (the "any query has work" test).  Both phases take a
+repository split into shards (``bound_phases_shards``, ``phase2_shards``:
+the sharded engine's lockstep form, the counterpart of the JAX package's
+``axis=`` forms); the local engine passes one shard and runs the same
+code.  ``topk_hausdorff_host``
 keeps the host-chunked loop, one (Q, D) pair per kernel call, as the
 oracle: the batched pipeline must equal it bitwise.  ``lax.top_k`` (largest
 first, ties toward the smaller index) is a stable sort here.
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import geometry
+from repro_torch.core import distributed, geometry
 from repro_torch.core.index import DatasetIndex
 from repro_torch.core.repo_index import Repository
 from repro_torch.kernels import hausdorff, ops
@@ -170,12 +174,6 @@ def _frontier_bound_all_levels(q_idx: DatasetIndex, ds_index: DatasetIndex,
         levels=levels)
 
 
-def _kth_smallest(x: torch.Tensor, k: int) -> torch.Tensor:
-    """kth-smallest along the last axis (an element of x, bit for bit)."""
-    kk = min(k, x.shape[-1])
-    return torch.kthvalue(x, kk, dim=-1).values
-
-
 def _as_query_batch(q_idx: DatasetIndex):
     """Promote a single-query index to a (1, ...) batch; returns
     (batched index, was_single)."""
@@ -187,41 +185,81 @@ def _as_query_batch(q_idx: DatasetIndex):
 def _hausdorff_bound_phases(repo: Repository, q_idx: DatasetIndex, k: int,
                             refine_levels: int):
     """Phases 0 + 1 of ExactHaus for a (B, ...) query batch (a single query
-    is promoted and squeezed on return).
+    is promoted and squeezed on return): :func:`bound_phases_shards` with
+    one shard.
 
     Returns (LB (B, S), tau (B,), cand (B, S), nodes_evaluated (B,),
     cand_after_bounds (B,)), all device tensors."""
     q_idx, single = _as_query_batch(q_idx)
-    S = repo.n_slots
-    valid = repo.ds_valid
+    LBs, tau, cands, nodes, cand_after = bound_phases_shards(
+        [repo], [q_idx], k, refine_levels, repo.n_slots)
+    out = (LBs[0], tau, cands[0], nodes, cand_after)
+    if single:
+        out = tuple(x[0] for x in out)
+    return out
+
+
+def bound_phases_shards(shards, q_shards, k: int, refine_levels: int,
+                        n_slots_total: int):
+    """Phases 0 + 1 of ExactHaus over a repository whose slots are split
+    into shards (a list of :class:`Repository`, one extent each; the
+    local engine passes one).
+
+    ``q_shards`` holds the (B, ...) query batch on each shard's device.
+    Each shard runs one ``ops.bound_grid`` launch over its slots; the
+    bounds of a slot do not depend on the others, so slicing changes no
+    value.  The two repository-wide quantities are collectives over the
+    shards: each query's tau, the kth-smallest UB
+    (``distributed.global_kth_smallest``), and the counters
+    (``distributed.psum_int``).  Slots from ``n_slots_total`` on are
+    shard padding: they never count as candidates, even when tau is BIG
+    (k past the valid count), and the phase-0 node count is
+    ``n_slots_total``, so the counters equal the local engine's.
+
+    Returns (LBs, tau (B,), cands, nodes_evaluated (B,), cand_after
+    (B,)): LBs and cands per-shard lists of (B, S_shard), the rest on the
+    first shard's device."""
+    max_level = min(q_shards[0].depth, shards[0].ds_index.depth,
+                    refine_levels)
+    lvls = [_frontier_bound_all_levels(q, sh.ds_index, max_level)
+            for sh, q in zip(shards, q_shards)]
+    valids = [sh.ds_valid[None, :] for sh in shards]
 
     def count(mask):
         return mask.sum(dim=-1).to(torch.int32)
 
-    max_level = min(q_idx.depth, repo.ds_index.depth, refine_levels)
-    LB_lvls, UB_lvls = _frontier_bound_all_levels(q_idx, repo.ds_index,
-                                                  max_level)
+    def prune(cands, LBs, tau):
+        return [c & (lb <= (tau.to(lb.device) * _GUARD)[:, None])
+                for c, lb in zip(cands, LBs)]
 
     # phase 0: root-granularity Eq. 4 bounds for every slot
-    LB = torch.where(valid[None, :], LB_lvls[0], BIG)
-    UB = torch.where(valid[None, :], UB_lvls[0], BIG)
-    tau = _kth_smallest(UB, k)
-    cand = LB <= (tau * _GUARD)[:, None]
-    nodes_evaluated = torch.full((LB.shape[0],), S, dtype=torch.int32,
-                                 device=LB.device)
+    LBs = [torch.where(v, lb[0], BIG) for v, (lb, _) in zip(valids, lvls)]
+    UBs = [torch.where(v, ub[0], BIG) for v, (_, ub) in zip(valids, lvls)]
+    tau = distributed.global_kth_smallest(UBs, k)
+    cands = [lb <= (tau.to(lb.device) * _GUARD)[:, None] for lb in LBs]
+    base = 0
+    for i, lb in enumerate(LBs):
+        if base + lb.shape[1] > n_slots_total:      # shard padding
+            gid = base + torch.arange(lb.shape[1], device=lb.device)
+            cands[i] = cands[i] & (gid < n_slots_total)[None, :]
+        base += lb.shape[1]
+    nodes_evaluated = torch.full((LBs[0].shape[0],), n_slots_total,
+                                 dtype=torch.int32, device=LBs[0].device)
 
     # phase 1: level-synchronous refinement (bounds only tighten)
     for level in range(1, max_level + 1):
-        LB = torch.where(cand, torch.maximum(LB, LB_lvls[level]), LB)
-        UB = torch.where(cand, torch.minimum(UB, UB_lvls[level]), UB)
-        tau = _kth_smallest(torch.where(valid[None, :], UB, BIG), k)
-        cand = cand & (LB <= (tau * _GUARD)[:, None])
-        nodes_evaluated = nodes_evaluated + count(cand) * (1 << level)
+        LBs = [torch.where(c, torch.maximum(lb, lv[level]), lb)
+               for c, lb, (lv, _) in zip(cands, LBs, lvls)]
+        UBs = [torch.where(c, torch.minimum(ub, uv[level]), ub)
+               for c, ub, (_, uv) in zip(cands, UBs, lvls)]
+        tau = distributed.global_kth_smallest(
+            [torch.where(v, ub, BIG) for v, ub in zip(valids, UBs)], k)
+        cands = prune(cands, LBs, tau)
+        nodes_evaluated = nodes_evaluated + distributed.psum_int(
+            [count(c) for c in cands]) * (1 << level)
 
-    out = (LB, tau, cand, nodes_evaluated, count(cand))
-    if single:
-        out = tuple(x[0] for x in out)
-    return out
+    cand_after = distributed.psum_int([count(c) for c in cands])
+    return LBs, tau, cands, nodes_evaluated, cand_after
 
 
 def phase2_query_rows(q_idx: DatasetIndex):
@@ -236,71 +274,106 @@ def phase2_query_rows(q_idx: DatasetIndex):
 
 def _phase2_exact_loop(LB, cand, tau, q_idx: DatasetIndex,
                        ds_index: DatasetIndex, k: int, chunk: int):
-    """Phase 2 of ExactHaus for a (B, ...) query batch: a loop over a shared
-    (query, candidate-chunk) work frontier.
-
-    Each step evaluates the next ascending-LB chunk of every query that
-    still has work in one ``ops.directed_hausdorff_lanes`` call (the live
-    lanes only, read from the resident corpus by slot id, over the query
-    rows compacted once before the loop), then re-derives each query's tau
-    from its k smallest exact values.  A query without work idles (its
-    lanes are dead and its position holds), so each query follows exactly
-    the trajectory of its solo host loop.  The loop stops when no query
-    has work: one host sync per step.
-
-    Exactness: tau is always >= the true kth-smallest H_k, so a skipped
-    candidate has H >= LB > H_k and cannot enter the top-k, ties included.
-    Returns (exact_vals (B, S) with BIG where not evaluated, evaluated (B,)).
-    """
+    """Phase 2 of ExactHaus for a (B, ...) query batch (a single query is
+    promoted and squeezed): :func:`phase2_shards` with one shard.
+    Returns (exact_vals (B, S) with BIG where not evaluated, evaluated
+    (B,))."""
     single = LB.ndim == 1
     if single:
         LB, cand, tau = LB[None], cand[None], tau[None]
     q_idx, _ = _as_query_batch(q_idx)
-    B, S = LB.shape
-    dev = LB.device
-    lb_masked = torch.where(cand, LB, BIG)
-    # stable: LB ties keep slot order
-    lb_sorted, order = torch.sort(lb_masked, dim=-1, stable=True)
-    n_pad = -(-S // chunk) * chunk
-    # pad ids are 0 with BIG lanes: their amin writes change nothing
-    order_p = F.pad(order, (0, n_pad - S))
-    lb_p = F.pad(lb_sorted, (0, n_pad - S), value=BIG)
-
-    # the corpus is read in place by slot id
-    q_c, n_q = phase2_query_rows(q_idx)
-    d_pts_all, d_val_all = ds_index.points, ds_index.valid
-    extent = hausdorff.valid_extent(d_val_all)
-    lanes = torch.arange(chunk, dtype=torch.int64, device=dev)
-
-    def has_work(pos, tau_c):
-        # candidates remain and the head is not pruned (guarded)
-        lb0 = torch.gather(lb_p, 1, pos.clamp(max=n_pad - 1)[:, None])[:, 0]
-        return (pos < S) & (lb0 < BIG / 2) & (lb0 <= tau_c * _GUARD)
-
-    pos = torch.zeros((B,), dtype=torch.int64, device=dev)
-    vals = torch.full((B, S), BIG, dtype=torch.float32, device=dev)
-    tau_c = tau.to(torch.float32)
-    evaluated = torch.zeros((B,), dtype=torch.int32, device=dev)
-    go = has_work(pos, tau_c)
-    while bool(go.any()):
-        idx = (pos[:, None] + lanes[None, :]).clamp(max=n_pad - 1)
-        ids = torch.gather(order_p, 1, idx)
-        lbs = torch.gather(lb_p, 1, idx)
-        live = (lbs < BIG / 2) & go[:, None]
-        # dead lanes come back BIG and change nothing in the amin
-        hs = ops.directed_hausdorff_lanes(q_c, n_q, d_pts_all, d_val_all,
-                                          extent, ids, live)
-        vals.scatter_reduce_(1, ids, hs, "amin", include_self=True)
-        evaluated += live.sum(dim=-1).to(torch.int32)
-        pos = torch.where(go, pos + chunk, pos)
-        # per-query threshold tightening from the k finite exacts
-        finite = vals < BIG / 2
-        kth = _kth_smallest(torch.where(finite, vals, BIG), k)
-        tau_c = torch.where(finite.sum(dim=-1) >= k, kth, tau_c)
-        go = has_work(pos, tau_c)
+    vals, evaluated = phase2_shards([LB], [cand], tau, q_idx, [ds_index],
+                                    k, chunk)
     if single:
-        return vals[0], evaluated[0]
-    return vals, evaluated
+        return vals[0][0], evaluated[0]
+    return vals[0], evaluated
+
+
+def phase2_shards(LBs, cands, tau, q_idx: DatasetIndex, ds_indexes, k: int,
+                  chunk: int):
+    """Phase 2 of ExactHaus in lockstep over the shards of a repository:
+    one loop over a shared (query, candidate-chunk) work frontier.
+
+    Each shard keeps its own ascending-LB order over its own slots.  A
+    step evaluates, on every shard with work, the next chunk of each
+    query that still has work there in one
+    ``ops.directed_hausdorff_lanes`` launch (the live lanes only, read
+    from the shard's resident corpus by slot id, over the query rows
+    compacted once before the loop).  Then each query's tau is re-derived
+    from its k smallest exact values over all shards
+    (``distributed.global_kth_smallest``) and every shard re-tests its
+    own work: one host read per step for the whole mesh.  A query or
+    shard without work idles and may resume when a raised tau lets it,
+    as in the JAX package's sharded loop, so with one shard each query
+    follows exactly the trajectory of its solo host loop.
+
+    Exactness under any split: tau is always >= the true kth-smallest
+    H_k, so a skipped candidate has H >= LB > H_k and cannot enter the
+    top-k, ties included.  Only ``evaluated`` depends on the split.
+    Returns (per-shard exact values (B, S_shard) with BIG where not
+    evaluated, evaluated (B,) summed over the shards)."""
+    q_c, n_q = phase2_query_rows(q_idx)
+    tau_c = tau.to(torch.float32)
+    states = []
+    for LB, cand, ds in zip(LBs, cands, ds_indexes):
+        B, S = LB.shape
+        dev = LB.device
+        lb_masked = torch.where(cand, LB, BIG)
+        # stable: LB ties keep slot order
+        lb_sorted, order = torch.sort(lb_masked, dim=-1, stable=True)
+        n_pad = -(-S // chunk) * chunk
+        states.append({
+            "S": S, "n_pad": n_pad,
+            # pad ids are 0 with BIG lanes: their amin writes change nothing
+            "order": F.pad(order, (0, n_pad - S)),
+            "lb": F.pad(lb_sorted, (0, n_pad - S), value=BIG),
+            "q_c": q_c.to(dev), "n_q": n_q.to(dev),
+            # the corpus is read in place by slot id
+            "pts": ds.points, "valid": ds.valid,
+            "extent": hausdorff.valid_extent(ds.valid),
+            "lanes": torch.arange(chunk, dtype=torch.int64, device=dev),
+            "pos": torch.zeros((B,), dtype=torch.int64, device=dev),
+            "vals": torch.full((B, S), BIG, dtype=torch.float32, device=dev),
+            "evaluated": torch.zeros((B,), dtype=torch.int32, device=dev)})
+
+    def has_work(st, tau_c):
+        # candidates remain and the head is not pruned (guarded)
+        pos, n_pad = st["pos"], st["n_pad"]
+        tau_s = tau_c.to(pos.device)
+        lb0 = torch.gather(st["lb"], 1, pos.clamp(max=n_pad - 1)[:, None])[:, 0]
+        return (pos < st["S"]) & (lb0 < BIG / 2) & (lb0 <= tau_s * _GUARD)
+
+    gos = [has_work(st, tau_c) for st in states]
+    while True:
+        flags = distributed.any_per_shard(gos)
+        if not any(flags):
+            break
+        for st, go, flag in zip(states, gos, flags):
+            if not flag:
+                continue
+            pos = st["pos"]
+            idx = (pos[:, None] + st["lanes"][None, :]).clamp(
+                max=st["n_pad"] - 1)
+            ids = torch.gather(st["order"], 1, idx)
+            lbs = torch.gather(st["lb"], 1, idx)
+            live = (lbs < BIG / 2) & go[:, None]
+            # dead lanes come back BIG and change nothing in the amin
+            hs = ops.directed_hausdorff_lanes(st["q_c"], st["n_q"], st["pts"],
+                                              st["valid"], st["extent"], ids,
+                                              live)
+            st["vals"].scatter_reduce_(1, ids, hs, "amin", include_self=True)
+            st["evaluated"] += live.sum(dim=-1).to(torch.int32)
+            st["pos"] = torch.where(go, pos + chunk, pos)
+        # per-query threshold tightening from the k finite exacts
+        finite = [st["vals"] < BIG / 2 for st in states]
+        kth = distributed.global_kth_smallest(
+            [torch.where(f, st["vals"], BIG) for f, st in zip(finite, states)],
+            k)
+        n_fin = distributed.psum_int([f.sum(dim=-1) for f in finite])
+        tau_c = torch.where(n_fin >= k, kth, tau_c)
+        gos = [has_work(st, tau_c) for st in states]
+    evaluated = distributed.psum_int([st["evaluated"] for st in states])
+    return [st["vals"] for st in states], evaluated
 
 
 def _topk_hausdorff_device_batched(repo: Repository, q_batch: DatasetIndex,

@@ -1,6 +1,6 @@
 """QueryEngine: the batched multi-query execution engine.
 
-Counterpart of ``repro.engine.engine`` for one device.  The engine owns a
+Counterpart of ``repro.engine.engine``.  The engine owns a
 resident :class:`Repository` (on the card, or on the CPU when it was built
 with ``device="cpu"``) and answers declarative batches through
 :meth:`QueryEngine.search`:
@@ -26,8 +26,14 @@ to cache and that part is not ported; ``EngineStats`` keeps the query,
 dispatch, result-cache, planner and publish counters.  The dispatcher's
 layout epoch (``LocalDispatcher.repo_epoch``, bumped by a live tier
 growth) keys no cache here; it is kept so that growth reads the same
-values as in the JAX package.  The sharded and replicated dispatchers are
-a later slice.
+values as in the JAX package.
+
+``QueryEngine(repo, mesh=...)`` selects the dispatcher: without a mesh the
+:class:`LocalDispatcher`; a 2-D (replica, data) mesh
+(``core.distributed.Mesh``) the replica-parallel one
+(:mod:`repro_torch.engine.replicated`), a 1-D data mesh the data-sharded
+one (:mod:`repro_torch.engine.sharded`).  Every layer above the dispatcher is
+shared, and the results are bitwise the local engine's.
 """
 from __future__ import annotations
 
@@ -104,7 +110,10 @@ class EngineStats:
     ``plan_groups`` and ``group_counts[op]`` count the dispatch groups a
     ``search()`` call formed (op groups and pipeline stage-2 groups alike),
     ``pipeline_stage1`` / ``pipeline_stage2`` the pipelines whose stage ran,
-    and :meth:`record_latency` each group's wall time.
+    and :meth:`record_latency` each group's wall time.  Under a replicated
+    dispatcher a group's rows span up to R replica row-blocks:
+    ``replica_subgroups`` and ``group_counts[op]`` count those, so
+    ``plan_groups <= replica_subgroups``, equal off a replica mesh.
 
     Under a live repository, rows cached at a retired epoch are purged on
     every epoch install and counted in ``epoch_invalidations``; a repeat
@@ -120,6 +129,7 @@ class EngineStats:
     prepare_overlap_seconds: float = 0.0   # prepare host time under serving
     publish_seconds: list = field(default_factory=list)  # per-publish wall s
     plan_groups: int = 0             # dispatch groups formed by search()
+    replica_subgroups: int = 0       # replica row-blocks those groups spanned
     pipeline_stage1: int = 0         # pipelines whose dataset stage ran
     pipeline_stage2: int = 0         # pipelines whose point stage ran
     group_counts: dict = field(default_factory=dict)   # op -> groups
@@ -190,11 +200,13 @@ class EngineStats:
             seconds if prev is None
             else prev + self.EWMA_ALPHA * (seconds - prev))
 
-    def count_group(self, op: str) -> None:
+    def count_group(self, op: str, subgroups: int = 1) -> None:
         """Record one dispatch group formed by the planner (an op group, or
-        a pipeline stage-2 group under its point op's name)."""
+        a pipeline stage-2 group under its point op's name) spanning
+        ``subgroups`` replica row-blocks (1 off a replica mesh)."""
         self.plan_groups += 1
-        self.group_counts[op] = self.group_counts.get(op, 0) + 1
+        self.replica_subgroups += subgroups
+        self.group_counts[op] = self.group_counts.get(op, 0) + subgroups
 
     def _fold_stats(self, op: str, stats: list, fields: tuple) -> None:
         """Fold one dispatch's per-query stats into ``per_op[op]``: the
@@ -235,6 +247,10 @@ class LocalDispatcher:
     def __init__(self, repo: Repository):
         self.repo = repo
         self.n_slots = repo.n_slots
+
+    @property
+    def device(self) -> torch.device:
+        return self.repo.device
 
     def _bind(self, impl, **statics):
         def call(*args, **kw):
@@ -286,11 +302,16 @@ class LocalDispatcher:
 
 class QueryEngine:
     """Batched search over a resident repository (see module docstring).
-    The engine runs on the device its repository lives on."""
+
+    The engine runs on the device its repository lives on or, given a
+    ``mesh``, on the mesh's devices, taking queries and returning results
+    on its lead device.  A sharded engine keeps no whole repository:
+    ``repo`` is then None and the shards are ``dispatch.shards`` (or each
+    replica group's, ``dispatch.groups[r].shards``)."""
 
     def __init__(self, repo: Repository, *, leaf_capacity: int = 16,
                  result_cache_size: int = DEFAULT_RESULT_CACHE,
-                 default_chunk: int = 32):
+                 default_chunk: int = 32, mesh=None):
         self.buckets = DEFAULT_BUCKETS
         self.leaf_capacity = leaf_capacity
         self.default_chunk = default_chunk
@@ -298,8 +319,15 @@ class QueryEngine:
         self.result_cache_size = result_cache_size
         self._result_cache: OrderedDict = OrderedDict()
         self._n_valid = int(repo.ds_valid.sum())
-        self.dispatch = LocalDispatcher(repo)
-        self.repo = repo
+        if mesh is None:
+            self.dispatch = LocalDispatcher(repo)
+        elif len(mesh.axis_names) == 2:
+            from repro_torch.engine.replicated import ReplicatedDispatcher
+            self.dispatch = ReplicatedDispatcher(repo, mesh)
+        else:
+            from repro_torch.engine.sharded import ShardedDispatcher
+            self.dispatch = ShardedDispatcher(repo, mesh)
+        self.repo = getattr(self.dispatch, "repo", None)
         # the data epoch and the per-slot epoch table of the result-cache
         # keys; a live repository installs them (set_repo_epoch)
         self._repo_epoch = 0
@@ -355,7 +383,7 @@ class QueryEngine:
 
     @property
     def device(self) -> torch.device:
-        return self.repo.device
+        return self.dispatch.device
 
     # -- bucketing ---------------------------------------------------------
 
@@ -367,6 +395,13 @@ class QueryEngine:
         while b < batch:          # beyond the ladder: grow geometrically
             b *= 2
         return b
+
+    def _plan_subgroups(self, batch: int) -> int:
+        """Replica row-blocks a ``batch``-row dispatch group spans under
+        this engine's dispatcher (1 unless it splits rows over replica
+        groups): what the planner books through ``count_group``."""
+        f = getattr(self.dispatch, "row_subgroups", None)
+        return 1 if f is None else f(batch, self.bucket_for(batch))
 
     @staticmethod
     def _pad_rows(x: torch.Tensor, bucket: int) -> torch.Tensor:

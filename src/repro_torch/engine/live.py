@@ -46,8 +46,10 @@ stream (a thread's current stream is the default one unless it sets
 another, and neither does), so stream order serialises a prepare's row
 builds with the dispatcher's queries and no tensor crosses streams.
 
-The sharded and replicated forms of the JAX package (``mesh=``) are not
-ported (ROADMAP.md queue 1 item 12).
+The live repository on a mesh (the JAX package's ``mesh=``: shard-aligned
+growth, owner writes) is not ported (ROADMAP.md queue 1 item 12b); the
+frozen sharded and replicated engines are
+(:mod:`repro_torch.engine.sharded`, :mod:`repro_torch.engine.replicated`).
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ from repro_torch.engine.engine import QueryEngine
 
 __all__ = ["LiveRepository", "PreparedGroup", "PreparedMutation"]
 
-MULTI_DEVICE_ITEM = "ROADMAP.md queue 1 item 12"
+MULTI_DEVICE_ITEM = "ROADMAP.md queue 1 item 12b"
 
 
 @dataclass
@@ -125,8 +127,8 @@ class LiveRepository:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                f"LiveRepository(mesh=...): multi-device engines are not "
-                f"ported to repro_torch yet ({MULTI_DEVICE_ITEM})")
+                f"LiveRepository(mesh=...): the live repository on a mesh "
+                f"is not ported to repro_torch yet ({MULTI_DEVICE_ITEM})")
         self.device = resolve_device(device)
         self._clock = clock
         repo, geom = repo_mutate.init_live(

@@ -120,7 +120,8 @@ def execute(engine, items) -> list:
     stage1: dict = {}          # input pos -> stage-1 SearchResult
     handoffs: dict = {}        # input pos -> device (k,) winner-id row
     for g in plan(items, engine.leaf_capacity):
-        engine.stats.count_group(g.op)
+        # subgroups: the replica row-blocks the group's rows span
+        engine.stats.count_group(g.op, engine._plan_subgroups(len(g.rows)))
         t0 = time.perf_counter()
         rows, ids_dev = _run_group(engine, g)
         engine.stats.record_latency(g.op, time.perf_counter() - t0)
@@ -287,7 +288,7 @@ def _run_stage2(engine, items, stage1, handoffs, results) -> None:
     for key, poss in groups.items():
         pop = key[0]
         ks = [items[pos].dataset_stage.k for pos in poss]
-        engine.stats.count_group(pop)
+        engine.stats.count_group(pop, engine._plan_subgroups(int(sum(ks))))
         t0 = time.perf_counter()
         # winner ids, handed over on the device; -1 sentinels (k past the
         # valid dataset count) are clamped to slot 0 for the gather and

@@ -7,7 +7,9 @@ one-pair ops and their pair axis, one launch for a chunk of pairs), for
 ``hausdorff_grid`` (the JAX package's grid op and phase 2's lane op) and
 for ``bound_matrices`` (the JAX package's matrix op and the pruned NNP's
 ``bound_row_ub``, its masked row min fused in); the joinable ops'
-``plane_weighted_intersect`` is one ``set_intersect`` call.  There is no
+``plane_weighted_intersect`` is one ``set_intersect`` call, and the ring
+Hausdorff's per-hop ``min_sq_dists_pairs`` the row minima under
+``directed_hausdorff_pairs``.  There is no
 size-based routing and no autotune table: a CUDA tensor always launches
 the kernel (or raises), a CPU tensor always takes the plain version, and
 the two are bitwise equal.  ``LAUNCHES[name]`` counts kernel
@@ -51,12 +53,19 @@ def directed_hausdorff_pairs(q, ds, q_valid, ds_valid) -> torch.Tensor:
     ``vmap(lambda dp, dv: directed_hausdorff(q, dp, q_valid, dv))``; one
     ``min_sq_dists`` launch on the card, the root, row mask and max in
     torch."""
-    if _route("directed_hausdorff_pairs", q):
-        mins = hausdorff.min_sq_dists_pairs(q, ds, q_valid, ds_valid)
-    else:
-        mins = ref.min_sq_dists_pairs(q, ds, q_valid, ds_valid)
+    mins = min_sq_dists_pairs(q, ds, q_valid, ds_valid)
     nnd = torch.where(q_valid, ref.ieee_sqrt(mins), -BIG)
     return torch.amax(nnd, dim=-1)
+
+
+def min_sq_dists_pairs(q, ds, q_valid, ds_valid) -> torch.Tensor:
+    """Per-row min squared distance of one query set q (nq, W) / q_valid
+    (nq,) to each of P datasets ds (P, nd, W) / ds_valid (P, nd): (P, nq)
+    float32, BIG where D_p has no valid point and on invalid rows; one
+    ``min_sq_dists`` launch on the card."""
+    if _route("min_sq_dists_pairs", q):
+        return hausdorff.min_sq_dists_pairs(q, ds, q_valid, ds_valid)
+    return ref.min_sq_dists_pairs(q, ds, q_valid, ds_valid)
 
 
 def directed_hausdorff_grid_plain(q, ds, q_valid, ds_valid) -> torch.Tensor:

@@ -4,8 +4,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve_search --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_search --device cpu \
         --live --mutate-every 8 --requests 64 --datasets 32
+    PYTHONPATH=src python -m repro_torch.launch.serve_search --sharded
+    PYTHONPATH=src python -m repro_torch.launch.serve_search --device cpu \
+        --replicas 2 --data-shards 2
 
-Counterpart of ``repro.launch.serve_search`` for one device.  Clients
+Counterpart of ``repro.launch.serve_search``.  Clients
 submit single queries of mixed kinds (RangeS, top-k IA / GBO, ApproHaus,
 ExactHaus, joinable overlap and coverage, RangeP, NNP, and dataset -> point
 and dataset -> dataset pipelines) into a queue; a dispatcher thread drains
@@ -30,9 +33,13 @@ is served.  Every query behind a mutation is answered at the
 post-mutation epoch.
 
 The server runs on the device its engine lives on, ``cuda`` unless it is
-given ``device="cpu"``.  Not ported yet: the multi-device engines
-(``--sharded``, ``--replicas``, ``--data-shards``; ROADMAP.md queue 1
-item 12), which raise ``NotImplementedError`` naming the item.
+given ``device="cpu"``.  Multi-device serving (``--sharded``, ``--replicas
+R``, ``--data-shards D``): the engine is a ``ShardedQueryEngine`` or a
+``ReplicatedQueryEngine`` over the visible cards, one shard each; with
+``--device cpu`` there are no cards to count, so the mesh is D CPU shards
+per replica group (D defaults to ``CPU_SHARDS``).  A live repository on a
+mesh (``--live`` with any of them) is not ported yet (ROADMAP.md queue 1
+item 12b) and raises ``NotImplementedError`` naming the item.
 """
 from __future__ import annotations
 
@@ -53,6 +60,10 @@ from repro_torch.device import resolve_device
 from repro_torch.engine import Pipeline, Query, QueryEngine, SearchResult
 from repro_torch.engine import plan as plan_lib
 from repro_torch.engine.live import MULTI_DEVICE_ITEM
+
+#: data shards per replica group of a ``--device cpu`` mesh without
+#: ``--data-shards``
+CPU_SHARDS = 2
 
 # ops the submit() shim wraps into a Query / Pipeline; any mix of them may
 # share one queue drain
@@ -644,6 +655,8 @@ def main(argv=None):
     from repro_torch.core.build import build_repository
     from repro_torch.data import synthetic
     from repro_torch.engine.live import LiveRepository
+    from repro_torch.engine.sharded import data_mesh
+    from repro_torch.launch.mesh import make_serving_mesh
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--requests", type=int, default=256)
@@ -657,11 +670,17 @@ def main(argv=None):
                     help="device to serve from (default: cuda, which must "
                          "be present; 'cpu' runs the plain PyTorch path)")
     ap.add_argument("--sharded", action="store_true",
-                    help=f"not ported ({MULTI_DEVICE_ITEM})")
+                    help="serve from a ShardedQueryEngine: the resident "
+                         "repository split over a 1-D data mesh, one shard "
+                         "per visible card")
     ap.add_argument("--replicas", type=int, default=0, metavar="R",
-                    help=f"not ported ({MULTI_DEVICE_ITEM})")
+                    help="serve from a ReplicatedQueryEngine over an R x D "
+                         "(replica x data) mesh: each drain's rows split "
+                         "over the R groups")
     ap.add_argument("--data-shards", type=int, default=None, metavar="D",
-                    help=f"not ported ({MULTI_DEVICE_ITEM})")
+                    help="data shards of the mesh (per replica group); "
+                         "default: the visible cards (/ R), or "
+                         f"{CPU_SHARDS} with --device cpu")
     ap.add_argument("--live", action="store_true",
                     help="serve from a mutable LiveRepository and open the "
                          "mutation lane")
@@ -670,13 +689,25 @@ def main(argv=None):
                          "measured stream an ingest/delete/replace "
                          "mutation (0 = queries only)")
     args = ap.parse_args(argv)
-    if args.sharded or args.replicas or args.data_shards is not None:
+    on_mesh = args.sharded or args.replicas or args.data_shards is not None
+    if args.live and on_mesh:
         raise NotImplementedError(
-            f"--sharded / --replicas / --data-shards: multi-device engines "
-            f"are not ported to repro_torch yet ({MULTI_DEVICE_ITEM})")
+            f"--live with --sharded / --replicas / --data-shards: the live "
+            f"repository on a mesh is not ported to repro_torch yet "
+            f"({MULTI_DEVICE_ITEM})")
     if args.mutate_every and not args.live:
         ap.error("--mutate-every requires --live")
     dev = resolve_device(args.device)
+    mesh = None
+    if on_mesh:
+        n_rep = max(args.replicas, 1)
+        pool = None                     # the visible cards
+        if dev.type != "cuda":
+            pool = [dev] * (n_rep * (args.data_shards or CPU_SHARDS))
+        if args.replicas:
+            mesh = make_serving_mesh(n_rep, args.data_shards, pool)
+        else:
+            mesh = data_mesh(args.data_shards, pool)
 
     lake = synthetic.trajectory_repository(args.datasets, seed=0)
     live = None
@@ -688,7 +719,13 @@ def main(argv=None):
     else:
         repo, _ = build_repository(lake, leaf_capacity=16, theta=5,
                                    device=dev)
-        engine = QueryEngine(repo)
+        engine = QueryEngine(repo, mesh=mesh)
+        if mesh is not None:
+            d = engine.dispatch
+            print(f"[serve_search] {d.name} engine: "
+                  f"{getattr(d, 'n_replicas', 1)} replica group(s) x "
+                  f"{d.n_shards} data shard(s) of {d.shard_slots} dataset "
+                  f"slots on {[str(x) for x in mesh.flat]}")
     server = SearchServer(engine, live=live, max_batch=args.max_batch,
                           max_wait_ms=args.max_wait_ms,
                           adaptive=not args.static_window, device=dev)

@@ -678,3 +678,31 @@ def bridge_leaves(repo):
             yield x
 
     return list(leaves(tuple(bridge.to_numpy(repo))))
+
+
+def test_sharded_engines_on_card(cuda_device):
+    """The sharded (3 shards) and replicated (2 x 2) engines with every
+    shard on the one card: every op and pipeline kind bitwise equal to the
+    local engine on the card, the kernels launched per shard."""
+    from repro_torch.core.build import build_repository
+    from repro_torch.engine import (QueryEngine, ReplicatedQueryEngine,
+                                    ShardedQueryEngine, data_mesh,
+                                    replica_mesh)
+    from test_torch_sharded import (assert_results_bitwise, every_op_batch,
+                                    make_env)
+
+    env = make_env()
+    env.repo, _ = build_repository(env.datasets, leaf_capacity=16, theta=5,
+                                   remove_outliers=False, device=cuda_device)
+    batch = every_op_batch(env)
+    want = QueryEngine(env.repo, result_cache_size=0).search(batch)
+    for engine in (
+            ShardedQueryEngine(env.repo, mesh=data_mesh(
+                devices=[cuda_device] * 3), result_cache_size=0),
+            ReplicatedQueryEngine(env.repo, mesh=replica_mesh(
+                2, 2, [cuda_device] * 4), result_cache_size=0)):
+        ops.reset_launches()
+        assert_results_bitwise(engine.search(batch), want)
+        for name in ("bound_grid", "hausdorff_grid", "set_intersect",
+                     "bound_row_ub"):
+            assert ops.LAUNCHES[name] > 0, name

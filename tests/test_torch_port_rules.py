@@ -5,7 +5,8 @@
 * A CPU tensor takes the plain version and books no kernel launch; a
   tensor on another device is refused.
 * Entry points called without ``device="cpu"`` raise when no CUDA device
-  is present: a missing card never silently means the CPU.
+  is present: a missing card never silently means the CPU.  A mesh
+  without a device list is the visible cards, so it raises too.
 * ``chip_smoke.py`` fails without a card and never prints a result.
 """
 import ast
@@ -54,7 +55,12 @@ def test_join_and_serving_modules_are_scanned():
             "src/repro_torch/core/repo_mutate.py",
             "src/repro_torch/engine/live.py",
             "src/repro_torch/launch/__init__.py",
-            "src/repro_torch/launch/serve_search.py"} <= names
+            "src/repro_torch/launch/serve_search.py",
+            "src/repro_torch/core/distributed.py",
+            "src/repro_torch/engine/merge.py",
+            "src/repro_torch/engine/sharded.py",
+            "src/repro_torch/engine/replicated.py",
+            "src/repro_torch/launch/mesh.py"} <= names
 
 
 def test_cpu_tensors_take_the_plain_path():
@@ -164,6 +170,30 @@ def test_entry_points_need_a_card_unless_told_cpu():
     assert live.repo.device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         repo_mutate.build_frozen(live.slot_datasets(), live.geometry)
+
+
+def test_meshes_need_a_card_unless_given_devices():
+    """A mesh defaults to the visible cards: with none it raises, and it
+    never falls back to the CPU or to fewer shards on its own."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    from repro_torch.engine import (ReplicatedQueryEngine, ShardedQueryEngine,
+                                    data_mesh, replica_mesh)
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    for make in (data_mesh, lambda: replica_mesh(2, 2), make_serving_mesh):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        data_mesh(devices=["cpu", "cuda:0"])
+    repo, _ = build_repository([np.ones((20, 2), np.float32)], device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardedQueryEngine(repo)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplicatedQueryEngine(repo, n_replicas=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_search.main(["--requests", "4", "--datasets", "4",
+                           "--sharded"])
 
 
 def test_server_needs_a_card_unless_told_cpu():

@@ -9,8 +9,9 @@ item.  The live lane (the live cases of ``tests/test_serve_search.py`` and
 ``tests/test_mutation_properties.py``): each query segment is answered at
 its stream position, bitwise as a cold engine over the frozen build of
 that position, and adjacent mutations coalesce into one publish.  The
-multi-device options raise ``NotImplementedError`` naming their ROADMAP
-item.  The traffic generator gives the JAX package's stream for the same
+multi-device options serve from a sharded or replicated engine over a CPU
+mesh; the live repository on a mesh raises ``NotImplementedError`` naming
+its ROADMAP item.  The traffic generator gives the JAX package's stream for the same
 seed, with and without a mutation lane.
 """
 import time
@@ -341,9 +342,12 @@ def test_make_traffic_mutation_lane_matches_jax(env):
 
 
 @pytest.mark.parametrize("call,item", [
-    ("--sharded", 12), ("--replicas", 12), ("--data-shards", 12),
-    ("live_mesh", 12)])
+    pytest.param(c, "12b", id=f"{c}-12")
+    for c in ("--sharded", "--replicas", "--data-shards", "live_mesh")])
 def test_unported_lanes_name_their_item(env, call, item):
+    """The multi-device engines serve (``test_main_serves_on_a_cpu_mesh``);
+    the live repository on a mesh, with ``--live`` or ``mesh=``, raises
+    naming ROADMAP item 12b before anything is built."""
     datasets, repo = env
     match = f"ROADMAP.md queue 1 item {item}"
     with pytest.raises(NotImplementedError, match=match):
@@ -351,8 +355,51 @@ def test_unported_lanes_name_their_item(env, call, item):
             LiveRepository(datasets, mesh=object(), device="cpu")
         else:
             arg = {"--replicas": ["2"], "--data-shards": ["2"]}.get(call, [])
-            serve_search.main(["--device", "cpu", "--datasets", "4", call,
-                               *arg])
+            serve_search.main(["--device", "cpu", "--datasets", "4", "--live",
+                               call, *arg])
+
+
+@pytest.mark.parametrize("flags,name,groups,shards", [
+    (["--sharded"], "sharded", 1, serve_search.CPU_SHARDS),
+    (["--replicas", "2"], "replicated", 2, serve_search.CPU_SHARDS),
+    (["--sharded", "--data-shards", "3"], "sharded", 1, 3)])
+def test_main_serves_on_a_cpu_mesh(capsys, flags, name, groups, shards):
+    stats = serve_search.main(["--device", "cpu", "--requests", "24",
+                               "--datasets", "12", *flags])
+    assert stats.requests == 24
+    out = capsys.readouterr().out
+    assert (f"[serve_search] {name} engine: {groups} replica group(s) x "
+            f"{shards} data shard(s)") in out
+    assert "[serve_search] device: cpu" in out
+
+
+def test_server_over_a_sharded_engine(env):
+    """A burst of every request kind, pre-filled as one drain, through a
+    server over a 3-shard engine: each response equals a direct search of
+    the local engine (a joinable query's counters depend on its batch and
+    its split, so there vals and ids), and the drain forms the local
+    server's 14 dispatch groups."""
+    from repro_torch.engine import ShardedQueryEngine, data_mesh
+
+    datasets, repo = env
+    engine = ShardedQueryEngine(repo, mesh=data_mesh(devices=["cpu"] * 3))
+    server = _server(engine, max_batch=64, max_wait_ms=250.0)
+    traffic = make_traffic(repo, datasets, 27, seed=3)
+    reqs = [Request(op, _to_query(op, p)) for op, p in traffic]
+    for r in reqs:
+        server._queue.put(r)
+    server.start()
+    try:
+        got = [r.future.result(timeout=WAIT) for r in reqs]
+    finally:
+        server.stop()
+    assert server.stats.batches == 14
+    local = QueryEngine(repo, result_cache_size=0)
+    for (op, p), res in zip(traffic, got):
+        want = _direct(local, op, p)
+        if op in ("topk_hausdorff", "topk_overlap", "topk_coverage"):
+            res, want = res[:2], want[:2]
+        _assert_same(res, want)
 
 
 def test_main_serves_on_the_cpu_when_told(env, capsys):
