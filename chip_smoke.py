@@ -68,7 +68,7 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      version, the first of each kind replayed in a CUDA graph and all of
      a kind together (``ms_per_search``);
  11. serving: ``SearchServer`` over the same engine, a warm-up burst and
-     a measured burst of ``make_traffic(repo, datasets, 256, seed=0)`` at
+     a measured burst of ``make_traffic(*bounds, datasets, 256, seed=0)`` at
      max_batch 64 (QPS, p50/p99, requests per dispatch group), every
      future resolved within a timeout and each response bitwise equal to
      ``engine.search`` of its item (a joinable query's counters depend on
@@ -77,6 +77,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      trajectories on the card (``init_live``, every row a batch-of-1
      build; its time beside phase 2's batched build, and the count of
      slots that differ bitwise from that build, which is information),
+     64 rows built through the row stages' CUDA graphs held bitwise
+     against the same stages run eagerly (the time per row of each),
      then a served stream of ``make_traffic(..., 128, seed=0,
      mutate_every=16)`` at max_batch 64 after a warm-up of its queries
      (QPS, query p50/p99, publish p50/p99, mutation latency, coalesced
@@ -109,11 +111,27 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      then a served burst over the 4-shard engine (phase 11's gates), and
      ``ring_hausdorff`` / ``ring_nn_distance`` on one dataset pair at 4
      shards, bitwise equal to ``ops.directed_hausdorff_pairs`` and
-     ``ops.nn_distance_batched``, one launch per hop.
+     ``ops.nn_distance_batched``, one launch per hop;
+ 15. the live repository on a mesh of the card: ``LiveRepository`` over
+     the same 10,357 trajectories on 4 shards serving phase 12's stream
+     (QPS, query and publish p50/p99 beside phase 12's, init seconds,
+     per-shard resident bytes, launches over the stream); gates: every
+     future resolves, every mutation returns phase 12's slot, every
+     response equals phase 12's at the same stream position (ExactHaus
+     and joinable by vals and ids), the payload bytes equal phase 12's,
+     each shard is bitwise phase 12's final live repository split 4 ways,
+     and a batch of every op is bitwise phase 12's; then phase 13's
+     tier-growth set on a 3-shard (slot-padded) mesh and a (2, 2) replica
+     grid: 32 slots at layout epoch 1, every shard bitwise
+     ``shard_repository(build_frozen(...))``, a replace that gave new slot
+     tensors to its owner shard alone, and a batch of every op bitwise a
+     cold engine on the same mesh.  Every kernel launch of those batches
+     is kept and held bitwise against its plain version.
 
 The second-to-last line is the kernel table as JSON (each row's
-``launches`` from the local path, ``sharded_launches`` per phase-14
-path), the last line
+``launches`` from the local path, ``sharded_launches`` per phase-14 path
+(per search) and per phase-15 path: ``live_mesh_4`` over the stream,
+``live_growth_3`` and ``live_growth_2x2`` per batch), the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
@@ -165,6 +183,8 @@ N_REQUESTS = 256
 # the live phase's served stream: requests, and a mutation every this many
 LIVE_REQUESTS = 128
 LIVE_EVERY = 16
+# rows the graphed row build is held against the eager stages on
+ROW_CHECK = 64
 
 
 class SmokeFailure(RuntimeError):
@@ -1092,12 +1112,13 @@ def check_served(i, op, p, res, engine, serve_search,
 def serving_phase(engine, repo, datasets, ops, serve_search,
                   label="serving"):
     """Phase 11: ``SearchServer`` over the same engine, 256 requests of
-    ``make_traffic(repo, datasets, 256, seed=0)`` at max_batch 64: one
+    ``make_traffic(*bounds, datasets, 256, seed=0)`` at max_batch 64: one
     warm-up burst, then a measured burst with the launch counters read
     around it.  Every future resolves within a timeout, and each response
     is bitwise equal to ``engine.search`` of its item.  Phase 14 runs it
     again over a sharded engine, under another ``label``."""
-    traffic = serve_search.make_traffic(repo, datasets, N_REQUESTS, seed=0)
+    traffic = serve_search.make_traffic(
+        repo.space_lo, repo.space_hi, datasets, N_REQUESTS, seed=0)
     server = serve_search.SearchServer(engine, max_batch=64)
     server.start()
     try:
@@ -1267,9 +1288,11 @@ def live_phase(datasets, repo, info, build_repo_s, items, ops,
         "space_bounds_equal_batched": bool(
             torch.equal(live.repo.space_lo, repo.space_lo)
             and torch.equal(live.repo.space_hi, repo.space_hi))}))
+    row_build_check(datasets[:ROW_CHECK], geom, live.device)
 
-    traffic = serve_search.make_traffic(live.repo, datasets, LIVE_REQUESTS,
-                                        seed=0, mutate_every=LIVE_EVERY)
+    traffic = serve_search.make_traffic(
+        geom.space_lo, geom.space_hi, datasets, LIVE_REQUESTS, seed=0,
+        mutate_every=LIVE_EVERY)
     n_mut = sum(op in serve_search.MUTATION_OPS for op, _ in traffic)
     want_out = predicted_slots(traffic, live.live_ids, live.n_slots)
     server = serve_search.SearchServer(live=live, max_batch=64)
@@ -1379,7 +1402,41 @@ def live_phase(datasets, repo, info, build_repo_s, items, ops,
         f"repository bitwise equal to build_frozen ({frozen_s:.3f} s); a "
         f"batch of {len(items)} (every op) bitwise equal to a cold engine "
         f"({live_s:.3f} s on the live engine)")
-    return summary
+    return {"summary": dict(summary, init_live_s=init_s), "live": live,
+            "traffic": traffic, "got": got, "outcomes": outs,
+            "items": items, "results": res_live}
+
+
+def row_build_check(datasets, geom, dev):
+    """The row stages through their CUDA graphs (``build_row``, what
+    ``init_live``, ``build_frozen`` and every ingest run) against the same
+    stages run eagerly, row by row in turns at the main path's row shape:
+    bitwise equal, and the time per row of each."""
+    from repro_torch.core import repo_mutate as rm
+
+    lo, hi = geom.space_bounds(dev)
+
+    def eager(ds):
+        pts, val = rm._host_pad(np.asarray(ds, np.float32), geom)
+        tree = rm._tree_stage(geom.bottom_depth, pts.to(dev), val.to(dev))
+        if geom.r_prime is not None:
+            tree = rm._outlier_stage(geom.r_prime, *tree)
+        return tree, rm._signature_stage(geom.theta, tree.points,
+                                         tree.valid, lo, hi)
+
+    graph_s = eager_s = 0.0
+    for i, ds in enumerate(datasets):
+        got, t_g = sync_time(lambda: rm.build_row(ds, geom, device=dev))
+        want, t_e = sync_time(lambda: eager(ds))
+        graph_s += t_g
+        eager_s += t_e
+        check(repos_bitwise(got, want), f"row {i}: the graphed row build "
+              f"differs from the eager stages")
+    n = len(datasets)
+    log("row build: " + json.dumps({
+        "rows": n, "point_capacity": geom.point_capacity,
+        "graph_ms_per_row": 1e3 * graph_s / n,
+        "eager_ms_per_row": 1e3 * eager_s / n, "bitwise": True}))
 
 
 def growth_phase(datasets, items, ops):
@@ -1689,6 +1746,230 @@ def multi_device_phase(repo, datasets, q_sets, queries, local, reps, ops,
     ring_phase(q_sets[0], datasets[0], ops, distributed,
                data_mesh(devices=[card] * SHARDS))
     log(f"multi-device phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the live repository on a mesh, every shard on the one card
+# ---------------------------------------------------------------------------
+
+
+def storage(shard):
+    """The storage of a shard's slot tensors."""
+    return [x.data_ptr() for x in (*shard.ds_index, shard.ds_sigs,
+                                   shard.ds_valid)]
+
+
+def kept_batch(label, live, items, want, ops):
+    """A batch of every op on a live mesh: a pass keeping every kernel
+    launch's operands (results bitwise equal to ``want``: vals, ids,
+    masks), then a pass with the launch counters set to 0 just before it
+    and read just after, and every kept launch held bitwise against its
+    plain version.  Returns (launches, kept launches checked)."""
+    live.engine._result_cache.clear()
+    with keep_operands(kernel_targets()) as calls:
+        res = live.search(items)
+    check(results_bitwise(res, want), f"{label}: a batch of every op "
+          f"differs (vals, ids, masks)")
+    live.engine._result_cache.clear()
+    ops.reset_launches()
+    again = live.search(items)
+    launches = dict(ops.LAUNCHES)
+    check(results_bitwise(again, want), f"{label}: repeat batch differs")
+    for name, kept in calls.items():
+        check(len(kept) == launches[KEPT_KERNEL[name]],
+              f"{label}: the kept pass made {len(kept)} "
+              f"{KEPT_KERNEL[name]} launches, the counted one "
+              f"{launches[KEPT_KERNEL[name]]}")
+    for name in ("set_intersect", "bound_grid", "hausdorff_grid",
+                 "bound_row_ub"):
+        check(launches[name] > 0, f"{label}: the batch launched no {name}")
+    return launches, check_kept(label, calls)
+
+
+def live_mesh_stream(ref, datasets, ops, serve_search, card_line):
+    """Phase 15, full width: ``LiveRepository`` over the same 10,357
+    trajectories on a 4-shard mesh of the card, phase 12's stream served
+    through it (the same traffic seed, a mutation every 16th request);
+    gates: every future resolves, every mutation returns phase 12's slot,
+    every response equals phase 12's at the same stream position
+    (ExactHaus and joinable by vals and ids: their counters depend on the
+    split), the payload bytes equal phase 12's, each shard is bitwise
+    phase 12's final live repository split 4 ways, and a batch of every op
+    is bitwise phase 12's (every kept launch against its plain version).
+    ``ref`` is phase 12's state."""
+    from repro_torch.engine import LiveRepository, data_mesh
+    from repro_torch.engine.sharded import shard_repository
+
+    card = ref["live"].device
+    mesh = data_mesh(devices=[card] * SHARDS)
+    log(f"live mesh ({SHARDS} shards): devices "
+        f"{[str(x) for x in mesh.flat]}")
+    live, init_s = sync_time(lambda: LiveRepository(
+        datasets, leaf_capacity=16, theta=THETA, remove_outliers=True,
+        mesh=mesh))
+    traffic = serve_search.make_traffic(
+        live.geometry.space_lo, live.geometry.space_hi, datasets,
+        LIVE_REQUESTS, seed=0, mutate_every=LIVE_EVERY)
+    check([op for op, _ in traffic] == [op for op, _ in ref["traffic"]],
+          "the live mesh's stream differs from phase 12's")
+    server = serve_search.SearchServer(live=live, max_batch=64)
+    server.start()
+    try:
+        queries = [(op, p) for op, p in traffic
+                   if op not in serve_search.MUTATION_OPS]
+        for f in [server.submit(op, **p) for op, p in queries]:
+            f.result(timeout=600)
+        live.engine._result_cache.clear()
+        server.stats = serve_search.ServerStats()
+        st0 = live.stats
+        p0 = len(st0.publish_seconds)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        futures = [(server.submit_mutation(op, **p)
+                    if op in serve_search.MUTATION_OPS
+                    else server.submit(op, **p)) for op, p in traffic]
+        got = [f.result(timeout=600) for f in futures]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+    finally:
+        server.stop()
+    check(not server._thread.is_alive(), "the dispatcher thread outlived stop()")
+    for name in ("set_intersect", "bound_grid", "hausdorff_grid",
+                 "bound_row_ub"):
+        check(launches[name] > 0, f"the live mesh stream launched no {name}")
+    outs = [g for (op, _), g in zip(traffic, got)
+            if op in serve_search.MUTATION_OPS]
+    check(outs == ref["outcomes"], f"live mesh mutation outcomes {outs}, "
+          f"phase 12's {ref['outcomes']}")
+    check(live.bytes_uploaded == ref["live"].bytes_uploaded,
+          f"live mesh uploaded {live.bytes_uploaded} bytes, phase 12 "
+          f"{ref['live'].bytes_uploaded}")
+    for i, ((op, _), res, want) in enumerate(zip(traffic, got, ref["got"])):
+        if op in ("topk_hausdorff", "topk_overlap", "topk_coverage"):
+            res, want = res[:2], want[:2]
+        check(same_response(res, want), f"live mesh request {i} ({op}) "
+              f"differs from phase 12's")
+
+    st, sv, r12 = live.stats, server.stats, ref["summary"]
+    summary = {
+        "card": card_line, "shards": SHARDS, "requests": LIVE_REQUESTS,
+        "mutate_every": LIVE_EVERY, "init_live_s": init_s,
+        "local_init_live_s": r12["init_live_s"], "seconds": dt,
+        "qps": LIVE_REQUESTS / dt, "local_qps": r12["qps"],
+        "query_p50_ms": sv.p50_ms, "query_p99_ms": sv.p99_ms,
+        "local_query_p50_ms": r12["query_p50_ms"],
+        "local_query_p99_ms": r12["query_p99_ms"],
+        "publishes": len(st.publish_seconds) - p0,
+        "publish_p50_ms": st.publish_percentile_ms(50, since=p0),
+        "publish_p99_ms": st.publish_percentile_ms(99, since=p0),
+        "local_publish_p50_ms": r12["publish_p50_ms"],
+        "local_publish_p99_ms": r12["publish_p99_ms"],
+        "mutation_mean_ms": sv.mean_mutation_ms,
+        "bytes_uploaded": live.bytes_uploaded,
+        "per_shard_bytes": [sh.nbytes() for sh in live.shards],
+        "local_resident_bytes": ref["live"].engine.repo.nbytes(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches, "outcomes": outs}
+    log(f"live mesh stream ({SHARDS} shards): " + json.dumps(summary))
+
+    want, _ = shard_repository(ref["live"].engine.repo, mesh)
+    check(len(want) == len(live.shards) and all(
+        repos_bitwise(a, b) for a, b in zip(live.shards, want)),
+        "a live mesh shard differs from phase 12's live repository split "
+        f"{SHARDS} ways")
+    del want
+    _, checked = kept_batch(f"live mesh batch ({SHARDS} shards)", live,
+                            ref["items"], ref["results"], ops)
+    log(f"gates: {len(got)} futures resolved; mutation outcomes and "
+        f"{live.bytes_uploaded} payload bytes as phase 12's; every response "
+        f"equal to phase 12's (ExactHaus and joinable: vals and ids); every "
+        f"shard bitwise phase 12's live repository split {SHARDS} ways; a "
+        f"batch of {len(ref['items'])} (every op) bitwise phase 12's, kept "
+        f"launches checked {json.dumps(checked)}")
+    return launches
+
+
+def live_growth_mesh(label, mesh, datasets, items, ops):
+    """Phase 15, small scale: phase 13's tier-growth set on a mesh (12
+    datasets in a 16-slot tier, six ingests past it, a delete and a
+    replace); gates: 32 slots at layout epoch 1, the grown tier
+    shard-aligned, every shard of every replica group bitwise
+    ``shard_repository(build_frozen(...))``, the final replace gave new
+    slot tensors to its owner shard alone, and a batch of every op bitwise
+    equal to a cold engine on the same mesh (every kept launch against its
+    plain version).  Returns the batch's launches."""
+    from repro_torch.core.distributed import DATA_AXIS, Mesh
+    from repro_torch.engine import LiveRepository, QueryEngine
+    from repro_torch.engine.sharded import shard_repository
+
+    live = LiveRepository(datasets[:12], leaf_capacity=16, theta=THETA,
+                          remove_outliers=True, mesh=mesh)
+    ids = [live.ingest(d) for d in datasets[12:18]]
+    live.delete(3)
+    check(ids == list(range(12, 18)), f"{label}: ingest ids {ids}")
+    disp = live.engine.dispatch
+    check(live.n_slots == 32 and disp.repo_epoch == 1,
+          f"{label}: after growth, {live.n_slots} slots, layout epoch "
+          f"{disp.repo_epoch}")
+    layout = disp.layouts[0]
+    n = len(layout.shards)
+    before = [storage(sh) for sh in live.shards]
+    live.replace(ids[-1], datasets[18])
+    owner = ids[-1] // layout.shard_slots
+    for i, (sh, old) in enumerate(zip(live.shards, before)):
+        same = storage(sh) == old
+        check(same == (i % n != owner), f"{label}: the replace of slot "
+              f"{ids[-1]} (owner shard {owner}) "
+              f"{'kept' if same else 'replaced'} shard {i % n}'s slot "
+              f"tensors")
+    frozen = live.frozen_repository()
+    rows = ([Mesh(r, (DATA_AXIS,)) for r in mesh.devices]
+            if len(mesh.axis_names) == 2 else [mesh])
+    for L, row in zip(disp.layouts, rows):
+        want, n_phys = shard_repository(frozen, row)
+        check(L.n_slots_sharded == n_phys == -(-32 // n) * n
+              and all(repos_bitwise(a, b) for a, b in zip(L.shards, want)),
+              f"{label}: a shard differs from build_frozen split over its "
+              f"group")
+    small = [q for q in items if q.ds_id is None or q.ds_id in live.live_ids]
+    check(len(small) == len(items), "the batch names a slot that is not live")
+    want = QueryEngine(frozen, result_cache_size=0, mesh=mesh).search(small)
+    launches, checked = kept_batch(label, live, small, want, ops)
+    log(f"{label}: 12 -> 18 datasets, 16 -> {live.n_slots} slots "
+        f"({layout.shard_slots} a shard), "
+        f"layout epoch {disp.repo_epoch}, {live.bytes_uploaded} bytes "
+        f"uploaded; every shard bitwise build_frozen split over its group; "
+        f"the replace wrote shard {owner} alone; a batch of {len(small)} "
+        f"bitwise a cold engine on the mesh; launches {json.dumps(launches)}"
+        f"; kept launches checked {json.dumps(checked)}")
+    return launches
+
+
+def live_mesh_phase(ref, datasets, growth_items, ops, serve_search,
+                    card_line):
+    """Phase 15: the live repository on a mesh of the one card, at full
+    width on 4 shards (``live_mesh_stream``) and at small scale on a
+    3-shard (slot-padded) mesh and a (2, 2) replica grid
+    (``live_growth_mesh``).  Returns the launches per path."""
+    from repro_torch.engine import data_mesh, replica_mesh
+
+    t0 = time.perf_counter()
+    card = ref["live"].device
+    out = {f"live_mesh_{SHARDS}": live_mesh_stream(ref, datasets, ops,
+                                                   serve_search, card_line)}
+    ref.clear()
+    R, D = GRID
+    for key, mesh in (
+            (f"live_growth_{SHARDS_UNEVEN}",
+             data_mesh(devices=[card] * SHARDS_UNEVEN)),
+            (f"live_growth_{R}x{D}", replica_mesh(R, D, [card] * (R * D)))):
+        out[key] = live_growth_mesh(key.replace("_", " "), mesh, datasets,
+                                    growth_items, ops)
+    log(f"live mesh phase: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2053,23 +2334,29 @@ def main() -> int:
     sig_np = q_sigs.cpu().numpy().astype(np.uint32)
     del engine
     # point queries into ids the stream never deletes
-    live_phase(datasets, repo, info, build_repo_s, mixed_all_ops(
+    live_ref = live_phase(datasets, repo, info, build_repo_s, mixed_all_ops(
         q_sets, lo, hi, sig_np, eps, (6000, 6002, 6004, 6006), Query),
         ops, serve_search)
 
     # ---- 13. tier growth on the card ------------------------------------
-    growth_phase(datasets, mixed_all_ops(q_sets, lo, hi, sig_np, eps,
-                                         (4, 6, 8, 10), Query), ops)
+    growth_items = mixed_all_ops(q_sets, lo, hi, sig_np, eps, (4, 6, 8, 10),
+                                 Query)
+    growth_phase(datasets, growth_items, ops)
 
     # ---- 14. multi-device dispatch, every shard on the one card --------
     mesh_out = multi_device_phase(repo, datasets, q_sets, queries, local,
                                   reps, ops, serve_search)
+    mesh_out = {path: s["launches_per_search"] for path, s in
+                mesh_out.items()}
+
+    # ---- 15. the live repository on a mesh of the card ------------------
+    mesh_out.update(live_mesh_phase(live_ref, datasets, growth_items, ops,
+                                    serve_search, smi[0]))
 
     for r in rows:
         r["launches"] = launches[r["name"]]
-        r["sharded_launches"] = {
-            path: s["launches_per_search"][r["name"]]
-            for path, s in mesh_out.items()}
+        r["sharded_launches"] = {path: counts[r["name"]]
+                                 for path, counts in mesh_out.items()}
     rows += j_rows
     log(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))

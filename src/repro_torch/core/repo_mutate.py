@@ -30,9 +30,20 @@ slot goes through one row pipeline:
     slot-preserving build from ``{slot j: dataset_j or None}`` under the
     same geometry.
 
-The slot count starts at the cold build's and doubles through
-:meth:`RepoGeometry.grown` and :func:`grow_slots`.  The bottom point
-capacity is pinned at init: an oversize dataset is a ``ValueError``.
+The slot count starts at the cold build's (``slot_headroom`` doublings
+more) and doubles through :meth:`RepoGeometry.grown` and
+:func:`grow_slots`.  The bottom point capacity is pinned at init: an
+oversize dataset is a ``ValueError``.
+
+A row build is three stages: the bottom tree, the outlier removal at the
+pinned r', the signature at the pinned grid (:func:`init_live` runs each
+over every dataset before it can derive the next one's operand).  A
+stage of a batch-of-1 row has one shape per geometry and hundreds of
+small launches, so on the card it is captured once per (stage, static
+operand, device, operand shapes and dtypes) as a CUDA graph and replayed
+per row (:class:`_GraphedStage`): the graph replays the very
+kernels an eager call launches, on the same shapes, so its rows are the
+eager rows bit for bit, without the host's launch cost per op.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; the only host-to-device traffic of a row build is its
@@ -40,6 +51,7 @@ padded payload, ``point_capacity * (4 * dim + 1)`` bytes.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, replace
 from functools import lru_cache
 from typing import Sequence
@@ -65,9 +77,10 @@ class RepoGeometry:
     exactly), so re-materialising them reproduces the cold build's
     arithmetic bit for bit."""
 
-    leaf_capacity: int          # leaf fanout f of the bottom and upper trees
+    leaf_capacity: int          # leaf fanout f of the bottom trees
     bottom_depth: int           # pinned bottom tree depth
-    upper_depth: int            # current slot tier: n_slots = f * 2**d_u
+    repo_leaf_capacity: int     # leaf fanout f_up of the upper tree
+    upper_depth: int            # current slot tier: n_slots = f_up * 2**d_u
     theta: int                  # z-order grid resolution
     space_lo: tuple             # (2,) pinned Def. 4 grid bounds
     space_hi: tuple
@@ -80,7 +93,7 @@ class RepoGeometry:
 
     @property
     def n_slots(self) -> int:
-        return self.leaf_capacity * (1 << self.upper_depth)
+        return self.repo_leaf_capacity * (1 << self.upper_depth)
 
     @property
     def sig_words(self) -> int:
@@ -115,11 +128,10 @@ def _cat_rows(rows) -> DatasetIndex:
     return DatasetIndex(*[torch.cat(xs, dim=0) for xs in zip(*rows)])
 
 
-def pad_one(points: np.ndarray, geom: RepoGeometry, *, device=None):
-    """One dataset host-padded to the pinned (1, point_capacity, dim) layout
-    (zeros past the real points, as ``pad_batch``) and uploaded: the one
-    host-to-device copy of a row build."""
-    dev = resolve_device(device)
+def _host_pad(points: np.ndarray, geom: RepoGeometry):
+    """One dataset padded on the host to the pinned (1, point_capacity,
+    dim) layout (zeros past the real points, as ``pad_batch``) with its
+    validity mask."""
     n = int(points.shape[0])
     if n > geom.point_capacity:
         raise ValueError(
@@ -131,21 +143,116 @@ def pad_one(points: np.ndarray, geom: RepoGeometry, *, device=None):
     val = np.zeros((1, geom.point_capacity), bool)
     pts[0, :n] = points
     val[0, :n] = True
-    return torch.from_numpy(pts).to(dev), torch.from_numpy(val).to(dev)
+    return torch.from_numpy(pts), torch.from_numpy(val)
+
+
+def _tree_stage(depth: int, pts: torch.Tensor,
+                val: torch.Tensor) -> DatasetIndex:
+    """Row stage: the bottom tree of one padded dataset."""
+    return index_lib.build_index_batch(pts, val, depth)
+
+
+def _outlier_stage(r_prime: float, *tree: torch.Tensor) -> DatasetIndex:
+    """Row stage: Eq. 3's outlier removal at the pinned r' (a Python float
+    compares exactly: r' is a float32 value)."""
+    return outliers_lib.remove_outliers(DatasetIndex(*tree),
+                                        r_prime=r_prime)[0]
+
+
+def _signature_stage(theta: int, pts: torch.Tensor, val: torch.Tensor,
+                     lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Row stage: the z-order signature at resolution ``theta`` inside the
+    pinned grid bounds ``lo``, ``hi``."""
+    return zorder.signature(pts, val, lo, hi, theta)
+
+
+def _clone(x):
+    """A stage's output (a tensor or a DatasetIndex), cloned."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return type(x)(*[t.clone() for t in x])
+
+
+class _GraphedStage:
+    """A row stage captured as a CUDA graph at its first call and replayed
+    on every later one.  Each call copies its operands (host or device
+    tensors of the stage's one signature) into the graph's static inputs,
+    replays it on the current stream and returns clones of its outputs;
+    a lock serialises callers, since the static buffers are shared.  The
+    graph reads nothing it does not own: its static inputs (the grid
+    bounds among them) and the buffers allocated under capture."""
+
+    def __init__(self, fn, key, dev: torch.device):
+        self._fn, self._key, self._dev = fn, key, dev
+        self._graph = None
+        self._lock = threading.Lock()
+
+    def _capture(self, args) -> None:
+        self._in = [torch.empty(a.shape, dtype=a.dtype, device=self._dev)
+                    .copy_(a) for a in args]
+        main = torch.cuda.current_stream(self._dev)
+        side = torch.cuda.Stream(self._dev)
+        side.wait_stream(main)
+        # one eager pass first: lazy initialisations (library handles)
+        # must not happen under capture
+        with torch.cuda.stream(side):
+            self._fn(self._key, *self._in)
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._out = self._fn(self._key, *self._in)
+        self._graph = graph
+
+    def __call__(self, *args):
+        with self._lock:
+            if self._graph is None:
+                self._capture(args)
+            else:
+                for x, a in zip(self._in, args):
+                    x.copy_(a)
+            self._graph.replay()
+            return _clone(self._out)
+
+
+@lru_cache(maxsize=16)
+def _graphed(fn, key, dev: torch.device, spec: tuple) -> _GraphedStage:
+    """The graph of stage ``fn`` for everything that decides it: the static
+    ``key``, the device (with its index) and each operand's (shape,
+    dtype) in ``spec``."""
+    return _GraphedStage(fn, key, dev)
+
+
+def _stage(fn, key, dev: torch.device):
+    """Row stage ``fn`` with its static ``key`` on ``dev``: the stage's CUDA
+    graph on the card, the eager stage elsewhere."""
+    if dev.type != "cuda":
+        return lambda *args: fn(key, *[a.to(dev) for a in args])
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+
+    def call(*args):
+        spec = tuple((tuple(a.shape), a.dtype) for a in args)
+        return _graphed(fn, key, dev, spec)(*args)
+
+    return call
+
+
+def _refine(tree: DatasetIndex, geom: RepoGeometry, dev: torch.device):
+    """The refine of a built tree under the pinned geometry: outlier
+    removal (when r' is pinned), then the signature."""
+    if geom.r_prime is not None:
+        tree = _stage(_outlier_stage, geom.r_prime, dev)(*tree)
+    sign = _stage(_signature_stage, geom.theta, dev)
+    return tree, sign(tree.points, tree.valid, *geom.space_bounds(dev))
 
 
 def build_row(points: np.ndarray, geom: RepoGeometry, *, device=None):
     """The canonical row build: one dataset -> (batch-of-1 DatasetIndex,
     signature (1, W)) under the pinned geometry."""
     dev = resolve_device(device)
-    pts, val = pad_one(np.asarray(points, np.float32), geom, device=dev)
-    idx = index_lib.build_index_batch(pts, val, geom.bottom_depth)
-    if geom.r_prime is not None:
-        # a Python float compares exactly: r' is a float32 value
-        idx = outliers_lib.remove_outliers(idx, r_prime=geom.r_prime)[0]
-    lo, hi = geom.space_bounds(dev)
-    sigs = zorder.signature(idx.points, idx.valid, lo, hi, geom.theta)
-    return idx, sigs
+    pts, val = _host_pad(np.asarray(points, np.float32), geom)
+    tree = _stage(_tree_stage, geom.bottom_depth, dev)(pts, val)
+    return _refine(tree, geom, dev)
 
 
 def build_rows(datasets: Sequence[np.ndarray], geom: RepoGeometry, *,
@@ -253,9 +360,11 @@ def init_live(
     datasets: Sequence[np.ndarray],
     *,
     leaf_capacity: int = 16,
+    repo_leaf_capacity: int | None = None,
     theta: int = 5,
     remove_outliers: bool = True,
     point_capacity: int | None = None,
+    slot_headroom: int = 0,
     device=None,
 ) -> tuple[Repository, RepoGeometry]:
     """The cold build in Alg. 1's op order, pinning its geometry, with every
@@ -266,8 +375,12 @@ def init_live(
     from the largest dataset, r' from the pooled leaf radii of all bottom
     trees (Eq. 3), the grid bounds from the union of the refined root
     boxes.  ``point_capacity`` reserves bottom-tree headroom for larger
-    later datasets.  The upper tree's fanout is ``leaf_capacity``."""
+    later datasets.  The upper tree's fanout is ``repo_leaf_capacity``
+    (``leaf_capacity`` when None), and ``slot_headroom`` doubles the
+    first slot tier that many times."""
     dev = resolve_device(device)
+    if repo_leaf_capacity is None:
+        repo_leaf_capacity = leaf_capacity
     n_max = max(int(x.shape[0]) for x in datasets)
     depth_b = index_lib.depth_for(n_max, leaf_capacity)
     if point_capacity is not None:
@@ -277,15 +390,14 @@ def init_live(
         depth_b = max(depth_b,
                       index_lib.depth_for(point_capacity, leaf_capacity))
     B = len(datasets)
-    # the bottom layout is all pad_one needs; bounds, r' and the upper
-    # depth are filled in once derived
+    # the bottom layout is all the tree stage needs; bounds, r' and the
+    # upper depth are filled in once derived
     geom = RepoGeometry(leaf_capacity=leaf_capacity, bottom_depth=depth_b,
-                        upper_depth=0, theta=theta, space_lo=(), space_hi=(),
-                        r_prime=None)
-    built = []
-    for ds in datasets:
-        pts, val = pad_one(np.asarray(ds, np.float32), geom, device=dev)
-        built.append(index_lib.build_index_batch(pts, val, depth_b))
+                        repo_leaf_capacity=repo_leaf_capacity, upper_depth=0,
+                        theta=theta, space_lo=(), space_hi=(), r_prime=None)
+    tree = _stage(_tree_stage, depth_b, dev)
+    built = [tree(*_host_pad(np.asarray(ds, np.float32), geom))
+             for ds in datasets]
 
     r_prime = None
     if remove_outliers:
@@ -297,21 +409,23 @@ def init_live(
         leaf_c = torch.cat([index_lib.leaf_counts(b).reshape(-1)
                             for b in built])
         r_prime = float(outliers_lib.kneedle_threshold(leaf_r, leaf_c > 0))
-        for i, b in enumerate(built):
-            built[i] = outliers_lib.remove_outliers(b, r_prime=r_prime)[0]
+        refine = _stage(_outlier_stage, r_prime, dev)
+        built = [refine(*b) for b in built]
 
     space_lo = torch.amin(torch.cat([b.box_lo[:, 0, :2] for b in built]),
                           dim=0)
     space_hi = torch.amax(torch.cat([b.box_hi[:, 0, :2] for b in built]),
                           dim=0)
     geom = replace(geom,
-                   upper_depth=repo_lib.depth_for_repo(B, leaf_capacity),
+                   upper_depth=repo_lib.depth_for_repo(B, repo_leaf_capacity)
+                   + slot_headroom,
                    space_lo=_floats(space_lo), space_hi=_floats(space_hi),
                    r_prime=r_prime)
 
+    sign = _stage(_signature_stage, theta, dev)
     lo, hi = geom.space_bounds(dev)
-    sigs = torch.cat([zorder.signature(b.points, b.valid, lo, hi, theta)
-                      for b in built], dim=0)
+    sigs = torch.cat([sign(b.points, b.valid, lo, hi) for b in built],
+                     dim=0)
     rows = _cat_rows(built)
     del built
     return assemble(*_scatter_rows(rows, sigs, np.arange(B), geom),

@@ -1,7 +1,7 @@
 """LiveRepository: online ingest, delete and replace under serving traffic.
 
-Counterpart of ``repro.engine.live`` for one device.  It makes the resident
-repository a live catalog:
+Counterpart of ``repro.engine.live``.  It makes the resident repository a
+live catalog, on one device or on a mesh:
 
   * ``ingest(points) -> ds_id`` builds the new dataset's bottom tree and
     signature on the device under the pinned cold-build geometry
@@ -46,10 +46,31 @@ stream (a thread's current stream is the default one unless it sets
 another, and neither does), so stream order serialises a prepare's row
 builds with the dispatcher's queries and no tensor crosses streams.
 
-The live repository on a mesh (the JAX package's ``mesh=``: shard-aligned
-growth, owner writes) is not ported (ROADMAP.md queue 1 item 12b); the
-frozen sharded and replicated engines are
-(:mod:`repro_torch.engine.sharded`, :mod:`repro_torch.engine.replicated`).
+On a mesh (``mesh=``: a 1-D ``data_mesh`` or a (replica, data)
+``replica_mesh``) the engine's dispatcher holds the repository as shards
+(:mod:`repro_torch.engine.sharded`, :mod:`repro_torch.engine.replicated`)
+and a mutation touches only what it must:
+
+  * **owner writes**: a publish writes each slot j into its owner shard
+    ``j // shard_slots`` at local row ``j % shard_slots`` (in every
+    replica group), out of place, on that shard's tensors alone; the
+    other shards keep their slot tensors, the same storage;
+  * **one upper tree**: the root summaries of one group's shards are
+    gathered in shard order onto the lead device, trimmed to the logical
+    slot count, and the tree is built there at the local shape, as
+    ``build_frozen`` builds it (PyTorch's reductions split by shape, so a
+    tree built per shard or at the padded shape could differ in a last
+    bit), then copied to every shard;
+  * **shard-aligned growth**: the grown tier has ``ceil(n_slots / n) * n``
+    physical rows, logical slot j stays at physical row j, and shard i
+    takes rows ``[i * S, (i + 1) * S)`` of the old shards followed by the
+    zero tier, by device-to-device copies;
+  * the successor layouts are installed with one attribute write
+    (``dispatch.install``), the mesh's linearisation point.
+
+After any mutation sequence every shard is bitwise
+``shard_repository(build_frozen(...))`` of the same slot contents, and
+every op equals the local live engine's.
 """
 from __future__ import annotations
 
@@ -64,13 +85,12 @@ import torch
 
 from repro_torch.core import repo_mutate
 from repro_torch.core.index import DatasetIndex
-from repro_torch.core.repo_index import Repository
+from repro_torch.core.repo_index import RepoIndex, Repository
 from repro_torch.device import resolve_device
 from repro_torch.engine.engine import QueryEngine
+from repro_torch.engine.sharded import ShardLayout, gather_repository
 
 __all__ = ["LiveRepository", "PreparedGroup", "PreparedMutation"]
-
-MULTI_DEVICE_ITEM = "ROADMAP.md queue 1 item 12b"
 
 
 @dataclass
@@ -97,15 +117,33 @@ class PreparedGroup:
     aborted: bool = False
 
 
+def _slots(shard: Repository) -> tuple:
+    """A shard's slot tensors: the bottom-tree fields, signatures,
+    validity."""
+    return (*shard.ds_index, shard.ds_sigs, shard.ds_valid)
+
+
+def _with_slots(shard: Repository, tensors) -> Repository:
+    """``shard`` with the slot tensors :func:`_slots` lists replaced."""
+    return shard._replace(ds_index=DatasetIndex(*tensors[:-2]),
+                          ds_sigs=tensors[-2], ds_valid=tensors[-1])
+
+
 class LiveRepository:
     """A mutable, versioned repository serving through a QueryEngine.
 
-    ``point_capacity`` reserves bottom-tree headroom for datasets larger
-    than any initial one (an oversize ingest raises).  ``clock`` is the
-    timebase of the publish accounting (tests inject virtual time).  The
-    remaining keywords (``result_cache_size``, ``default_chunk``) go to
+    ``mesh=None`` serves from one device; a 1-D mesh selects sharded
+    dispatch and a (replica, data) mesh replica-parallel dispatch, and
+    mutation works the same on all three.  ``point_capacity`` reserves
+    bottom-tree headroom for datasets larger than any initial one (an
+    oversize ingest raises); ``repo_leaf_capacity`` is the upper tree's
+    fanout (``leaf_capacity`` by default) and ``slot_headroom`` doubles
+    the first slot tier that many times.  ``clock`` is the timebase of the
+    publish accounting (tests inject virtual time).  The remaining
+    keywords (``result_cache_size``, ``default_chunk``) go to
     :class:`~repro_torch.engine.engine.QueryEngine`.  It runs on ``cuda``
-    unless given ``device="cpu"``."""
+    unless given ``device="cpu"``; on a mesh, rows are built on the
+    mesh's lead device, and ``device`` may only name its kind."""
 
     #: rows per slot write inside one publish; larger groups are chunked.
     #: A chunk is padded to a power of two, so the writes take at most
@@ -118,26 +156,34 @@ class LiveRepository:
         *,
         mesh=None,
         leaf_capacity: int = 16,
+        repo_leaf_capacity: int | None = None,
         theta: int = 5,
         remove_outliers: bool = True,
         point_capacity: int | None = None,
+        slot_headroom: int = 0,
         clock=time.perf_counter,
         device=None,
         **engine_kwargs,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"LiveRepository(mesh=...): the live repository on a mesh "
-                f"is not ported to repro_torch yet ({MULTI_DEVICE_ITEM})")
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = mesh.lead
+            if (device is not None
+                    and resolve_device(device).type != self.device.type):
+                raise ValueError(f"device {device!r} is not the kind of the "
+                                 f"mesh's devices ({self.device})")
+        self.mesh = mesh
         self._clock = clock
         repo, geom = repo_mutate.init_live(
-            datasets, leaf_capacity=leaf_capacity, theta=theta,
+            datasets, leaf_capacity=leaf_capacity,
+            repo_leaf_capacity=repo_leaf_capacity, theta=theta,
             remove_outliers=remove_outliers, point_capacity=point_capacity,
-            device=self.device)
+            slot_headroom=slot_headroom, device=self.device)
         self.geometry = geom
         self.engine = QueryEngine(repo, leaf_capacity=leaf_capacity,
-                                  **engine_kwargs)
+                                  mesh=mesh, **engine_kwargs)
+        del repo                 # on a mesh the shards are the only copy
         B = len(datasets)
         #: data epoch of the published repository (monotone, starts at 0)
         self.epoch = 0
@@ -171,9 +217,27 @@ class LiveRepository:
     # -- views -------------------------------------------------------------
 
     @property
-    def repo(self) -> Repository:
-        """The currently published repository."""
-        return self.engine.dispatch.repo
+    def repo(self) -> Repository | None:
+        """The currently published repository on one device; ``None`` on a
+        mesh (as ``engine.repo``), where :attr:`shards` is the resident
+        state and :meth:`gathered_repository` makes a copy for checks."""
+        return self.engine.dispatch.repo if self.mesh is None else None
+
+    def gathered_repository(self) -> Repository:
+        """The published logical repository: on a mesh, a copy of the first
+        replica group's shards gathered on the lead device (the whole
+        repository, for checks); on one device, :attr:`repo` itself."""
+        if self.mesh is None:
+            return self.repo
+        return gather_repository(self.engine.dispatch.layouts[0],
+                                 self.device)
+
+    @property
+    def shards(self) -> tuple:
+        """On a mesh, the published shard Repositories of every replica
+        group, in the order of ``mesh.flat``."""
+        return tuple(sh for L in self.engine.dispatch.layouts
+                     for sh in L.shards)
 
     @property
     def stats(self):
@@ -370,8 +434,12 @@ class LiveRepository:
         sigs = torch.cat([p.sig for p in writes], dim=0)
         valids = torch.tensor([p.valid for p in writes], dtype=torch.bool,
                               device=dev)
-        new_repo = repo_mutate.update_slots(self.repo, slots, rows, sigs,
-                                            valids, geom=self.geometry)
+        if self.mesh is None:
+            new = repo_mutate.update_slots(self.repo, slots, rows, sigs,
+                                           valids, geom=self.geometry)
+        else:
+            new = self._owner_writes([p.slot for p in writes], rows, sigs,
+                                     valids)
         for p in chunk:
             if p.op == "delete":
                 self._live.discard(p.slot)
@@ -381,7 +449,7 @@ class LiveRepository:
                 self._live.add(p.slot)
                 self._slot_data[p.slot] = p.points
         self.mutations += len(chunk)
-        self._publish(new_repo, touched=tuple(last))
+        self._publish(new, touched=tuple(last))
         self.engine.stats.record_publish(self._clock() - t0,
                                          coalesced=len(chunk) - 1)
 
@@ -404,29 +472,114 @@ class LiveRepository:
 
     def _grow(self) -> None:
         """Materialise the tier the prepare stage reserved virtually: zeros
-        appended on the device (no upload), the dispatcher's slot count and
-        layout epoch moved, and the grown state published as its own data
-        epoch (dataset-op rows change width with the slot axis; point-op
-        rows survive, since no slot's contents changed)."""
+        appended on the device (no upload; shard-aligned on a mesh), the
+        dispatcher's slot count and layout epoch moved, and the grown state
+        published as its own data epoch (dataset-op rows change width with
+        the slot axis; point-op rows survive, since no slot's contents
+        changed)."""
         old_n = self.geometry.n_slots
         geom = self.geometry.grown()
-        grown = repo_mutate.grow_slots(self.repo, geom)
+        disp = self.engine.dispatch
+        if self.mesh is None:
+            grown = repo_mutate.grow_slots(self.repo, geom)
+            disp.n_slots = geom.n_slots
+        else:
+            grown = self._regrid(geom)
         self.geometry = geom
         self.slot_epochs = np.concatenate(
             [self.slot_epochs, np.zeros(geom.n_slots - old_n, np.int64)])
         self._grows_pending -= 1
-        disp = self.engine.dispatch
-        disp.n_slots = geom.n_slots
         disp.repo_epoch += 1
         self._publish(grown, touched=())
 
-    def _publish(self, new_repo: Repository, touched) -> None:
-        """Install the successor repository and its epoch.  The swap of
-        ``dispatch.repo`` is the linearisation point: later dispatches read
-        the successor, running ones keep the old tensors.  The epoch
-        install then purges the retired result rows."""
-        self.engine.dispatch.repo = new_repo
-        self.engine.repo = new_repo
+    # -- the mesh ------------------------------------------------------------
+
+    def _owner_writes(self, slots: list, rows: DatasetIndex,
+                      sigs: torch.Tensor, valids: torch.Tensor) -> tuple:
+        """The successor layouts of a publish on a mesh: in every replica
+        group, write ``k`` of the chunk lands in its owner shard
+        ``slots[k] // S`` at local row ``slots[k] % S`` (out of place,
+        ``index_copy`` on that shard's slot tensors); shards that own no
+        write keep theirs.  Then the one upper tree (:meth:`_with_tree`)."""
+        payload = (*rows, sigs, valids)
+        layouts = []
+        for L in self.engine.dispatch.layouts:
+            S = L.shard_slots
+            owned: dict = {}
+            for k, j in enumerate(slots):
+                owned.setdefault(j // S, []).append(k)
+            shards = list(L.shards)
+            for i, ks in owned.items():
+                dev = shards[i].device
+                pick = torch.tensor(ks, dtype=torch.int64, device=self.device)
+                local = torch.tensor([slots[k] % S for k in ks],
+                                     dtype=torch.int64, device=dev)
+                shards[i] = _with_slots(shards[i], [
+                    a.index_copy(0, local, r.index_select(0, pick).to(dev))
+                    for a, r in zip(_slots(shards[i]), payload)])
+            layouts.append(L._replace(shards=tuple(shards)))
+        return self._with_tree(layouts, self.geometry)
+
+    def _regrid(self, geom: repo_mutate.RepoGeometry) -> tuple:
+        """The grown tier on a mesh, shard-aligned: ``n_phys = ceil(n_slots
+        / n) * n`` physical rows, logical slot j at physical row j, shard i
+        holding rows ``[i * S, (i + 1) * S)`` of the old shards' slices in
+        order followed by zero rows (the all-gather and slice of the JAX
+        package, as device-to-device copies)."""
+        layouts = []
+        for L in self.engine.dispatch.layouts:
+            n = len(L.shards)
+            n_phys = -(-geom.n_slots // n) * n
+            old_s, new_s = L.shard_slots, n_phys // n
+            old = [_slots(sh) for sh in L.shards]
+            shards = []
+            for i, sh in enumerate(L.shards):
+                lo, hi = i * new_s, (i + 1) * new_s
+                # (old shard k, its local rows a:b) inside [lo, hi)
+                spans = [(k, max(lo, k * old_s) - k * old_s,
+                          min(hi, (k + 1) * old_s) - k * old_s)
+                         for k in range(n)
+                         if max(lo, k * old_s) < min(hi, (k + 1) * old_s)]
+                zeros = new_s - sum(b - a for _, a, b in spans)
+
+                def grown(f, dev=sh.device):
+                    x = old[0][f]
+                    return torch.cat(
+                        [old[k][f][a:b].to(dev) for k, a, b in spans]
+                        + [torch.zeros((zeros,) + tuple(x.shape[1:]),
+                                       dtype=x.dtype, device=dev)])
+
+                shards.append(_with_slots(sh, [grown(f)
+                                               for f in range(len(old[0]))]))
+            layouts.append(ShardLayout(tuple(shards), geom.n_slots, n_phys))
+        return self._with_tree(layouts, geom)
+
+    def _with_tree(self, layouts, geom) -> tuple:
+        """The layouts with the upper tree of their slot contents: the root
+        summaries of the first group's shards gathered in shard order onto
+        the lead device and trimmed to the logical slots, the tree built
+        there once at the local shape, then copied to every shard."""
+        parts = [(*sh.roots(), sh.ds_sigs, sh.ds_valid)
+                 for sh in layouts[0].shards]
+        roots = [torch.cat([p[f].to(self.device) for p in parts])[
+            :geom.n_slots] for f in range(len(parts[0]))]
+        tree = repo_mutate.upper_from_roots(*roots, geom.upper_depth)
+        return tuple(L._replace(shards=tuple(
+            sh._replace(repo=RepoIndex(*[x.to(sh.device) for x in tree]))
+            for sh in L.shards)) for L in layouts)
+
+    def _publish(self, state, touched) -> None:
+        """Install the successor state and its epoch: a repository on one
+        device (the swap of ``dispatch.repo``), the replica groups' layouts
+        on a mesh (``dispatch.install``).  That one write is the
+        linearisation point: later dispatches read the successor, running
+        ones keep what they read.  The epoch install then purges the
+        retired result rows."""
+        if self.mesh is None:
+            self.engine.dispatch.repo = state
+            self.engine.repo = state
+        else:
+            self.engine.dispatch.install(state)
         self.engine._n_valid = len(self._live)
         self.epoch += 1
         for s in touched:

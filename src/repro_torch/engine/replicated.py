@@ -19,6 +19,12 @@ its counters).  The engine stack above is untouched: the result cache
 short-circuits before the rows are split, and the planner books the
 replica row-blocks each dispatch group spans (:meth:`row_subgroups`,
 ``EngineStats.replica_subgroups`` and ``group_counts``).
+
+The R groups' :class:`~repro_torch.engine.sharded.ShardLayout` values
+are one tuple, :attr:`ReplicatedDispatcher.layouts`, read once per build
+(each group's builders then run on a dispatcher bound to its entry,
+:meth:`ShardedDispatcher.bound`) and replaced by a live publish or tier growth with one attribute write:
+a dispatch never sees group 0 at one epoch and group 1 at the next.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from repro_torch.core.distributed import DATA_AXIS, REPLICA_AXIS, Mesh
 from repro_torch.core.index import DatasetIndex
 from repro_torch.core.repo_index import Repository
 from repro_torch.engine.engine import QueryEngine
-from repro_torch.engine.sharded import ShardedDispatcher
+from repro_torch.engine.sharded import ShardedDispatcher, split_layout
 
 
 def replica_mesh(n_replicas: int, n_data: int | None = None,
@@ -64,6 +70,7 @@ class ReplicatedDispatcher:
     shard copies on its own devices."""
 
     name = "replicated"
+    #: layout epoch, bumped by a live tier growth
     repo_epoch = 0
 
     def __init__(self, repo: Repository, mesh: Mesh):
@@ -73,12 +80,28 @@ class ReplicatedDispatcher:
                 f"mesh is needed, got axes {mesh.axis_names}; build one with "
                 f"replica_mesh()")
         self.mesh = mesh
-        self.groups = [ShardedDispatcher(repo, Mesh(row, (DATA_AXIS,)))
-                       for row in mesh.devices]
-        g = self.groups[0]
-        self.n_replicas = len(self.groups)
-        self.n_shards, self.shard_slots = g.n_shards, g.shard_slots
-        self.n_slots, self.n_slots_sharded = g.n_slots, g.n_slots_sharded
+        self._rows = [Mesh(row, (DATA_AXIS,)) for row in mesh.devices]
+        #: the groups' layouts, in replica order
+        self.layouts = tuple(split_layout(repo, m) for m in self._rows)
+        self.n_replicas = len(self._rows)
+        self.n_shards = len(self._rows[0].devices)
+
+    @property
+    def groups(self) -> list:
+        """Each replica group's dispatcher, bound to the current layouts
+        (read once, so the groups of one build share an epoch)."""
+        return [ShardedDispatcher.bound(m, L)
+                for m, L in zip(self._rows, self.layouts)]
+
+    def install(self, layouts) -> None:
+        """Install the groups' successor layouts together: one attribute
+        write."""
+        self.layouts = tuple(layouts)
+
+    # the current layout's slot counts (every group's are the same)
+    n_slots = property(lambda self: self.layouts[0].n_slots)
+    n_slots_sharded = property(lambda self: self.layouts[0].n_slots_sharded)
+    shard_slots = property(lambda self: self.layouts[0].shard_slots)
 
     @property
     def device(self) -> torch.device:

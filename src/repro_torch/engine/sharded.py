@@ -47,6 +47,8 @@ same shard count.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core import distributed, geometry, join_search
@@ -122,6 +124,48 @@ def repo_device_bytes(shards) -> list:
     return [sh.nbytes() for sh in shards]
 
 
+class ShardLayout(NamedTuple):
+    """One epoch of a sharded repository's placement: the shard
+    Repositories in shard order (slot slice i on shard i), the logical
+    slot count and the count padded to a multiple of the shards."""
+
+    shards: tuple
+    n_slots: int
+    n_slots_sharded: int
+
+    @property
+    def shard_slots(self) -> int:
+        return self.n_slots_sharded // len(self.shards)
+
+
+def split_layout(repo: Repository, mesh: Mesh) -> ShardLayout:
+    """The layout of ``repo`` split over a 1-D mesh
+    (:func:`shard_repository`)."""
+    shards, n_padded = shard_repository(repo, mesh)
+    return ShardLayout(tuple(shards), repo.n_slots, n_padded)
+
+
+def gather_repository(layout: ShardLayout, device) -> Repository:
+    """The logical repository of a layout, gathered onto ``device``: the
+    shards' slot slices concatenated in shard order and trimmed to the
+    logical slots, with the first shard's upper tree and space bounds.  A
+    copy, the inverse of :func:`shard_repository`."""
+    shards = layout.shards
+
+    def cat(xs):
+        return torch.cat([x.to(device) for x in xs])[:layout.n_slots]
+
+    first = shards[0]
+    return Repository(
+        ds_index=DatasetIndex(*[cat(xs) for xs in
+                                zip(*[sh.ds_index for sh in shards])]),
+        ds_sigs=cat([sh.ds_sigs for sh in shards]),
+        ds_valid=cat([sh.ds_valid for sh in shards]),
+        repo=RepoIndex(*[x.to(device) for x in first.repo]),
+        space_lo=first.space_lo.to(device),
+        space_hi=first.space_hi.to(device))
+
+
 def _to(x, dev):
     if isinstance(x, DatasetIndex):
         return DatasetIndex(*[t.to(dev) for t in x])
@@ -134,47 +178,78 @@ class ShardedDispatcher:
     Same call contracts as :class:`~repro_torch.engine.engine.
     LocalDispatcher`: each ``build_*`` returns a callable over the
     query-side operands (on the mesh's lead device), returning outputs
-    there.  The shards are the only repository copy it keeps."""
+    there.  The shards are the only repository copy it keeps.  A builder
+    reads :attr:`layout` once: the callable runs on that epoch, whatever
+    is installed meanwhile."""
 
     name = "sharded"
-    #: layout epoch (a live repository on a mesh is ROADMAP item 12b)
+    #: layout epoch, bumped by a live tier growth
     repo_epoch = 0
 
     def __init__(self, repo: Repository, mesh: Mesh):
         self.mesh = mesh
-        self.n_slots = repo.n_slots
-        self.shards, self.n_slots_sharded = shard_repository(repo, mesh)
-        self.n_shards = len(self.shards)
-        self.shard_slots = self.n_slots_sharded // self.n_shards
+        self.layout = split_layout(repo, mesh)
+
+    @classmethod
+    def bound(cls, mesh: Mesh, layout: ShardLayout) -> "ShardedDispatcher":
+        """A dispatcher over ``mesh`` holding ``layout`` (a replica group's
+        builders at one epoch), without splitting a repository."""
+        self = cls.__new__(cls)
+        self.mesh, self.layout = mesh, layout
+        return self
+
+    # the current layout's parts, for inspection
+    shards = property(lambda self: self.layout.shards)
+    n_slots = property(lambda self: self.layout.n_slots)
+    n_slots_sharded = property(lambda self: self.layout.n_slots_sharded)
+    shard_slots = property(lambda self: self.layout.shard_slots)
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.mesh.devices)
+
+    @property
+    def layouts(self) -> tuple:
+        """The layout of each replica group: this one's alone."""
+        return (self.layout,)
+
+    def install(self, layouts) -> None:
+        """Install a successor layout: one attribute write."""
+        (self.layout,) = layouts
 
     @property
     def device(self) -> torch.device:
-        return self.shards[0].device
+        return self.mesh.lead
 
-    def _each(self, fn, *args):
+    @staticmethod
+    def _each(L: ShardLayout, fn, *args):
         """fn(shard index, shard, *args moved to its device), per shard."""
         return [fn(i, sh, *[_to(a, sh.device) for a in args])
-                for i, sh in enumerate(self.shards)]
+                for i, sh in enumerate(L.shards)]
 
-    def _merge(self, lists, k: int):
+    @staticmethod
+    def _merge(lists, k: int):
         return merge.all_gather_topk([v for v, _ in lists],
                                      [g for _, g in lists], k)
 
-    def _owner_rows(self, ds_ids):
+    @classmethod
+    def _owner_rows(cls, L: ShardLayout, ds_ids):
         """(owner shard (B,), per shard the gathered rows of the requested
         slots, ids clipped into its slice: only the owner's are right)."""
-        S = self.shard_slots
+        S = L.shard_slots
         owner = ds_ids // S
 
         def gather(i, sh, ids):
             lid = torch.clamp(ids - i * S, 0, S - 1)
             return DatasetIndex(*[x[lid] for x in sh.ds_index])
 
-        return owner, self._each(gather, ds_ids)
+        return owner, cls._each(L, gather, ds_ids)
 
     # -- dataset granularity ----------------------------------------------
 
     def build_range_search(self):
+        L = self.layout
+
         def shard_mask(i, sh, r_lo, r_hi):
             _, _, lo, hi = sh.roots()
             hit = geometry.box_overlaps(lo[None], hi[None], r_lo[:, None],
@@ -182,14 +257,14 @@ class ShardedDispatcher:
             return hit & sh.ds_valid[None, :]
 
         def call(r_lo, r_hi):
-            masks = self._each(shard_mask, r_lo, r_hi)
-            return distributed.all_gather(masks, dim=1)[:, :self.n_slots], \
-                None
+            masks = self._each(L, shard_mask, r_lo, r_hi)
+            return distributed.all_gather(masks, dim=1)[:, :L.n_slots], None
 
         return call
 
     def build_topk_ia(self, k: int):
-        S = self.shard_slots
+        L = self.layout
+        S = L.shard_slots
 
         def shard_top(i, sh, q_lo, q_hi):
             _, _, lo, hi = sh.roots()
@@ -199,13 +274,14 @@ class ShardedDispatcher:
             return merge.local_topk(ia, k, i * S)
 
         def call(q_lo, q_hi):
-            vals, ids = self._merge(self._each(shard_top, q_lo, q_hi), k)
+            vals, ids = self._merge(self._each(L, shard_top, q_lo, q_hi), k)
             return vals, merge.sentinel_ids(vals, ids)
 
         return call
 
     def build_topk_gbo(self, k: int):
-        S = self.shard_slots
+        L = self.layout
+        S = L.shard_slots
 
         def shard_top(i, sh, q_sigs):
             counts = ops.set_intersect_counts(q_sigs, sh.ds_sigs)
@@ -213,24 +289,25 @@ class ShardedDispatcher:
             return merge.local_topk(counts, k, i * S)
 
         def call(q_sigs):
-            vals, ids = self._merge(self._each(shard_top, q_sigs), k)
+            vals, ids = self._merge(self._each(L, shard_top, q_sigs), k)
             return vals, merge.sentinel_ids(vals, ids)
 
         return call
 
     def build_topk_hausdorff_approx(self, k: int):
-        S = self.shard_slots
+        L = self.layout
+        S = L.shard_slots
 
         def call(q_batch: DatasetIndex, eps):
             dq = q_batch.depth
-            dd = self.shards[0].ds_index.depth
+            dd = L.shards[0].ds_index.depth
             # Lemma 1's dataset stopping level over the whole repository:
             # AND of the shards' level tests (padded slots hold counts 0
             # and pass, as builder padding does)
             ds_ok = distributed.pmin([
                 search._levels_ok(sh.ds_index.radii, sh.ds_index.counts, dd,
                                   eps).all(dim=0).to(torch.int32)
-                for sh in self.shards]).bool()
+                for sh in L.shards]).bool()
             q_oks = search._levels_ok(q_batch.radii, q_batch.counts, dq, eps)
             lq = search._level_for_eps(q_oks, dq)
             ld, lq_max = torch.stack(
@@ -248,7 +325,7 @@ class ShardedDispatcher:
                 neg, gids = merge.local_topk(-vals, k, i * S)
                 return neg, gids, torch.amax(torch.where(d_ok, rd, 0.0))
 
-            parts = self._each(shard_top, oq, q_ok)
+            parts = self._each(L, shard_top, oq, q_ok)
             neg, ids = self._merge([(n, g) for n, g, _ in parts], k)
             # the eps_eff radius term: max of the shards' maxima (exact)
             r_d = distributed.pmax([r for _, _, r in parts])
@@ -265,30 +342,32 @@ class ShardedDispatcher:
         loop for the whole batch over every shard, then the O(k) merge.
         Shard-padded slots carry BIG like invalid ones and lose every
         smallest-index tie, so k <= n_slots never surfaces a pad id."""
-        S = self.shard_slots
+        L = self.layout
+        S = L.shard_slots
 
         def call(q_batch: DatasetIndex):
-            q_shards = [_to(q_batch, sh.device) for sh in self.shards]
+            q_shards = [_to(q_batch, sh.device) for sh in L.shards]
             LBs, tau, cands, nodes, cand_after = search.bound_phases_shards(
-                self.shards, q_shards, k, refine_levels, self.n_slots)
+                L.shards, q_shards, k, refine_levels, L.n_slots)
             exacts, evaluated = search.phase2_shards(
-                LBs, cands, tau, q_batch,
-                [sh.ds_index for sh in self.shards], k, chunk)
+                LBs, cands, tau, q_batch, [sh.ds_index for sh in L.shards],
+                k, chunk)
             lists = [merge.local_topk(
                 -torch.where(sh.ds_valid[None, :], ex, BIG), k, i * S)
-                for i, (sh, ex) in enumerate(zip(self.shards, exacts))]
+                for i, (sh, ex) in enumerate(zip(L.shards, exacts))]
             neg, ids = self._merge(lists, k)
             return -neg, ids, nodes, cand_after, evaluated
 
         return call
 
     def _build_topk_join(self, k: int, mode: str, chunk: int):
-        S = self.shard_slots
+        L = self.layout
+        S = L.shard_slots
 
         def call(q_pts, q_val):
             exacts, nodes, cand, evaluated = (
                 join_search.topk_join_scores_shards(
-                    self.shards, q_pts, q_val, k, mode, chunk))
+                    L.shards, q_pts, q_val, k, mode, chunk))
             vals, ids = self._merge(
                 [merge.local_topk(ex, k, i * S)
                  for i, ex in enumerate(exacts)], k)
@@ -306,8 +385,10 @@ class ShardedDispatcher:
     # -- point granularity and the join re-rank ---------------------------
 
     def build_range_points(self):
+        L = self.layout
+
         def call(ds_ids, r_lo, r_hi):
-            owner, rows = self._owner_rows(ds_ids)
+            owner, rows = self._owner_rows(L, ds_ids)
             parts = [point_search.range_points_core(
                 d_sel, r_lo.to(d_sel.points.device),
                 r_hi.to(d_sel.points.device)) for d_sel in rows]
@@ -317,8 +398,10 @@ class ShardedDispatcher:
         return call
 
     def build_nnp(self):
+        L = self.layout
+
         def call(ds_ids, q_batch: DatasetIndex):
-            owner, rows = self._owner_rows(ds_ids)
+            owner, rows = self._owner_rows(L, ds_ids)
             parts = [point_search.nnp_pruned_core(
                 _to(q_batch, d_sel.points.device), d_sel) for d_sel in rows]
             return tuple(distributed.owner_select(list(xs), owner)
@@ -327,12 +410,14 @@ class ShardedDispatcher:
         return call
 
     def build_join_rerank(self, mode: str):
+        L = self.layout
+
         def call(ds_ids, q_pts, q_val):
-            owner, rows = self._owner_rows(ds_ids)
+            owner, rows = self._owner_rows(L, ds_ids)
             scores = [join_search.pair_scores(
                 sh, d_sel.points, d_sel.valid, q_pts.to(sh.device),
                 q_val.to(sh.device), mode)
-                for sh, d_sel in zip(self.shards, rows)]
+                for sh, d_sel in zip(L.shards, rows)]
             return distributed.owner_select(scores, owner)
 
         return call

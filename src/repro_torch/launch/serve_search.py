@@ -37,9 +37,10 @@ given ``device="cpu"``.  Multi-device serving (``--sharded``, ``--replicas
 R``, ``--data-shards D``): the engine is a ``ShardedQueryEngine`` or a
 ``ReplicatedQueryEngine`` over the visible cards, one shard each; with
 ``--device cpu`` there are no cards to count, so the mesh is D CPU shards
-per replica group (D defaults to ``CPU_SHARDS``).  A live repository on a
-mesh (``--live`` with any of them) is not ported yet (ROADMAP.md queue 1
-item 12b) and raises ``NotImplementedError`` naming the item.
+per replica group (D defaults to ``CPU_SHARDS``).  ``--live`` composes
+with each of them: the live repository is then built over the mesh
+(``LiveRepository(mesh=...)``) and the mutation lane publishes through its
+owner writes.
 """
 from __future__ import annotations
 
@@ -55,11 +56,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import zorder
-from repro_torch.core.repo_index import Repository
 from repro_torch.device import resolve_device
 from repro_torch.engine import Pipeline, Query, QueryEngine, SearchResult
 from repro_torch.engine import plan as plan_lib
-from repro_torch.engine.live import MULTI_DEVICE_ITEM
 
 #: data shards per replica group of a ``--device cpu`` mesh without
 #: ``--data-shards``
@@ -548,14 +547,16 @@ class SearchServer:
 # ---------------------------------------------------------------------------
 
 
-def make_traffic(repo: Repository, datasets, n_requests: int, seed: int = 0,
-                 mutate_every: int = 0):
+def make_traffic(space_lo, space_hi, datasets, n_requests: int,
+                 seed: int = 0, mutate_every: int = 0):
     """A mixed stream of (op, payload) requests of twelve kinds: the nine
     serving ops and three pipelines (top-k IA -> RangeP inside the
     winners, ApproHaus -> NNP inside the winners, and top-k IA ->
     topk_overlap re-rank).  Payloads (signatures included) are built here,
-    on the host, as a client would send ready-made queries.  The same seed
-    gives the same stream as the JAX package's ``make_traffic``.
+    on the host, as a client would send ready-made queries, inside the
+    repository's grid bounds ``space_lo``, ``space_hi`` (tensors or float
+    tuples).  The same seed gives the same stream as the JAX package's
+    ``make_traffic``.
 
     ``mutate_every > 0`` makes every mutate_every-th position an ingest,
     delete or replace, in turn, with ids that stay valid wherever the
@@ -565,7 +566,8 @@ def make_traffic(repo: Repository, datasets, n_requests: int, seed: int = 0,
     [n_ds // 4, n_ds) only."""
     rng = np.random.default_rng(seed)
     n_ds = len(datasets)
-    lo_g, hi_g = repo.space_lo.cpu(), repo.space_hi.cpu()
+    lo_g = torch.as_tensor(space_lo, dtype=torch.float32).cpu()
+    hi_g = torch.as_tensor(space_hi, dtype=torch.float32).cpu()
     eps = float(zorder.default_epsilon(lo_g, hi_g, 5))
     del_pool = list(range(n_ds // 4)) if mutate_every else []
     rep_pool = list(range(n_ds // 4, n_ds // 2)) if mutate_every else []
@@ -690,11 +692,6 @@ def main(argv=None):
                          "mutation (0 = queries only)")
     args = ap.parse_args(argv)
     on_mesh = args.sharded or args.replicas or args.data_shards is not None
-    if args.live and on_mesh:
-        raise NotImplementedError(
-            f"--live with --sharded / --replicas / --data-shards: the live "
-            f"repository on a mesh is not ported to repro_torch yet "
-            f"({MULTI_DEVICE_ITEM})")
     if args.mutate_every and not args.live:
         ap.error("--mutate-every requires --live")
     dev = resolve_device(args.device)
@@ -712,20 +709,23 @@ def main(argv=None):
     lake = synthetic.trajectory_repository(args.datasets, seed=0)
     live = None
     if args.live:
-        live = LiveRepository(lake, leaf_capacity=16, theta=5, device=dev)
-        engine, repo = live.engine, live.repo
+        live = LiveRepository(lake, leaf_capacity=16, theta=5, mesh=mesh,
+                              device=dev)
+        engine = live.engine
+        space = live.geometry.space_lo, live.geometry.space_hi
         print(f"[serve_search] live repository: {live.n_slots} slots "
               f"({len(live.live_ids)} live), mutation lane open")
     else:
         repo, _ = build_repository(lake, leaf_capacity=16, theta=5,
                                    device=dev)
         engine = QueryEngine(repo, mesh=mesh)
-        if mesh is not None:
-            d = engine.dispatch
-            print(f"[serve_search] {d.name} engine: "
-                  f"{getattr(d, 'n_replicas', 1)} replica group(s) x "
-                  f"{d.n_shards} data shard(s) of {d.shard_slots} dataset "
-                  f"slots on {[str(x) for x in mesh.flat]}")
+        space = repo.space_lo, repo.space_hi
+    if mesh is not None:
+        d = engine.dispatch
+        print(f"[serve_search] {d.name} engine: "
+              f"{getattr(d, 'n_replicas', 1)} replica group(s) x "
+              f"{d.n_shards} data shard(s) of {d.shard_slots} dataset "
+              f"slots on {[str(x) for x in mesh.flat]}")
     server = SearchServer(engine, live=live, max_batch=args.max_batch,
                           max_wait_ms=args.max_wait_ms,
                           adaptive=not args.static_window, device=dev)
@@ -734,7 +734,7 @@ def main(argv=None):
     # so the warm drains are as deep as the measured ones (queries only:
     # the warm-up must not spend the stream's one-shot deletes)
     warm = [Request(op, _to_query(op, p))
-            for op, p in make_traffic(repo, lake, args.requests)]
+            for op, p in make_traffic(*space, lake, args.requests)]
     for req in warm:
         server._queue.put(req)
     server.start()
@@ -760,7 +760,7 @@ def main(argv=None):
         # the result cache is dropped, so the measured requests dispatch
         engine._result_cache.clear()
         server.stats = ServerStats()       # report the measured window only
-        traffic = make_traffic(repo, lake, args.requests,
+        traffic = make_traffic(*space, lake, args.requests,
                                mutate_every=args.mutate_every)
         h0 = engine.stats.result_cache_hits
         m0 = engine.stats.result_cache_misses

@@ -593,7 +593,8 @@ def test_server_on_card(cuda_device):
     datasets, _, card = _join_repos(cuda_device)
     engine = QueryEngine(card)
     server = serve_search.SearchServer(engine, max_batch=32)
-    traffic = serve_search.make_traffic(card, datasets, 36, seed=1)
+    traffic = serve_search.make_traffic(card.space_lo, card.space_hi,
+                                        datasets, 36, seed=1)
     server.start()
     try:
         futures = [server.submit(op, **p) for op, p in traffic]
@@ -706,3 +707,169 @@ def test_sharded_engines_on_card(cuda_device):
         for name in ("bound_grid", "hausdorff_grid", "set_intersect",
                      "bound_row_ub"):
             assert ops.LAUNCHES[name] > 0, name
+
+
+def test_graphed_row_build_equals_eager(cuda_device):
+    """On the card every row stage replays a CUDA graph captured at its
+    first call: at T-Drive's row shape (4,096 points) each row, and the
+    whole ``init_live`` repository, equal the eager stages bit for bit,
+    also for a row built on a second thread while the first one queues
+    work."""
+    import threading
+
+    from repro_torch.core import repo_mutate
+    from repro_torch.data import synthetic
+
+    datasets = synthetic.trajectory_repository(24, seed=5,
+                                               n_points=(100, 2800))
+    repo, geom = repo_mutate.init_live(datasets, leaf_capacity=16, theta=5,
+                                       point_capacity=4096,
+                                       device=cuda_device)
+    assert geom.point_capacity == 4096 and geom.r_prime is not None
+
+    rows = [_eager_row(ds, geom, cuda_device) for ds in datasets]
+    for ds, want in zip(datasets[:8], rows):
+        got = repo_mutate.build_row(ds, geom, device=cuda_device)
+        for a, b in zip(leaves(got), leaves(want)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    cold = repo_mutate.assemble(*repo_mutate._scatter_rows(
+        repo_mutate._cat_rows([r[0] for r in rows]),
+        torch.cat([r[1] for r in rows]), np.arange(len(rows)), geom), geom)
+    for a, b in zip(leaves(repo), leaves(cold)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+    side = {}
+    thread = threading.Thread(target=lambda: side.update(
+        row=repo_mutate.build_row(datasets[3], geom, device=cuda_device)))
+    thread.start()
+    x = torch.rand(2048, 2048, device=cuda_device)
+    for _ in range(8):
+        x = x @ x.T / 2048
+    thread.join(timeout=300)
+    assert not thread.is_alive()
+    for a, b in zip(leaves(side["row"]), leaves(rows[3])):
+        assert torch.equal(a, b)
+
+
+def _eager_row(ds, geom, dev):
+    """One row built by calling the three row stages eagerly."""
+    from repro_torch.core import repo_mutate
+
+    pts, val = repo_mutate._host_pad(ds, geom)
+    tree = repo_mutate._tree_stage(geom.bottom_depth, pts.to(dev),
+                                   val.to(dev))
+    tree = repo_mutate._outlier_stage(geom.r_prime, *tree)
+    return tree, repo_mutate._signature_stage(
+        geom.theta, tree.points, tree.valid, *geom.space_bounds(dev))
+
+
+def test_graphed_stages_key_on_shape_and_own_their_operands(cuda_device):
+    """Two geometries with one bottom depth and different leaf capacities
+    (so different row shapes) each replay their own graph, and a replay
+    after the grid bounds' cache is cleared and its memory handed out
+    again still equals the eager stages bit for bit: a stage's graph
+    reads only tensors it owns."""
+    from repro_torch.core import repo_mutate
+    from repro_torch.data import synthetic
+
+    datasets = synthetic.trajectory_repository(10, seed=9,
+                                               n_points=(60, 500))
+    kw = dict(theta=5, device=cuda_device)
+    geoms = [repo_mutate.init_live(datasets, leaf_capacity=16,
+                                   point_capacity=1024, **kw)[1],
+             repo_mutate.init_live(datasets, leaf_capacity=8,
+                                   point_capacity=512, **kw)[1]]
+    assert geoms[0].bottom_depth == geoms[1].bottom_depth
+    assert geoms[0].point_capacity != geoms[1].point_capacity
+
+    def check():
+        for geom in geoms:
+            for ds in datasets[:3]:
+                got = repo_mutate.build_row(ds, geom, device=cuda_device)
+                want = _eager_row(ds, geom, cuda_device)
+                for a, b in zip(leaves(got), leaves(want)):
+                    assert a.dtype == b.dtype and torch.equal(a, b)
+
+    check()
+    repo_mutate._bounds.cache_clear()
+    # blocks of the bounds' size, so the freed ones are handed out again
+    junk = [torch.full((2,), 1e9, device=cuda_device) for _ in range(4096)]
+    check()
+    del junk
+
+
+def leaves(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    else:
+        for y in x:
+            yield from leaves(y)
+
+
+@pytest.mark.parametrize("grid", [(1, 3), (2, 2)])
+def test_live_mesh_on_card(cuda_device, grid):
+    """The live repository on a mesh of the one card (3 shards, and a
+    (2, 2) replica grid): after ingests (one crossing the tier), a
+    replace, a delete and a coalesced group, every shard equals
+    ``shard_repository(build_frozen(...))`` bit for bit, and a batch of
+    every op equals the local live engine on the card (vals, ids,
+    masks), with the kernels launched per shard."""
+    from repro_torch.core.distributed import DATA_AXIS, Mesh
+    from repro_torch.engine import (LiveRepository, Query, data_mesh,
+                                    replica_mesh)
+    from repro_torch.engine.sharded import shard_repository
+
+    R, D = grid
+    mesh = (data_mesh(devices=[cuda_device] * D) if R == 1
+            else replica_mesh(R, D, [cuda_device] * (R * D)))
+    rng = np.random.default_rng(21)
+
+    def mk(n):
+        return (rng.uniform(-40, 40, 2)
+                + rng.normal(size=(n, 2)) * 3).astype(np.float32)
+
+    init = [mk(int(n)) for n in rng.integers(20, 60, 12)]
+    kw = dict(leaf_capacity=8, point_capacity=64, result_cache_size=64,
+              device=cuda_device)
+    live = LiveRepository(init, mesh=mesh, **kw)
+    local = LiveRepository(init, **kw)
+    later = [mk(40) for _ in range(5)] + [mk(50), mk(30), mk(20), mk(25)]
+    for lv in (live, local):
+        for pts in later[:5]:
+            lv.ingest(pts)
+        lv.replace(3, later[5])
+        lv.delete(5)
+        lv.publish_group(lv.prepare_group(
+            [("ingest", None, later[6]), ("replace", 0, later[7]),
+             ("delete", 7, None), ("replace", 0, later[8])]))
+    assert live.n_slots == 32 and live.engine.dispatch.repo_epoch == 1
+    frozen = live.frozen_repository()
+    rows = ([Mesh(r, (DATA_AXIS,)) for r in mesh.devices] if R > 1
+            else [mesh])
+    for L, row in zip(live.engine.dispatch.layouts, rows):
+        want, _ = shard_repository(frozen, row)
+        for got, w in zip(L.shards, want):
+            for a, b in zip(leaves(got), leaves(w)):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+    q = mk(24)
+    lo, hi = q.min(axis=0) - 5, q.max(axis=0) + 5
+    items = [Query(op="range_search", r_lo=lo, r_hi=hi),
+             Query(op="topk_ia", r_lo=lo, r_hi=hi, k=4),
+             Query(op="topk_gbo", q_sig=np.zeros(32, np.uint32), k=3),
+             Query(op="topk_hausdorff_approx", q=q, k=3, eps=1.0),
+             Query(op="topk_hausdorff", q=q, k=3),
+             Query(op="range_points", ds_id=2, r_lo=lo, r_hi=hi),
+             Query(op="nnp", ds_id=4, q=q),
+             Query(op="topk_overlap", q=q, k=3),
+             Query(op="topk_coverage", q=q, k=3)]
+    ops.reset_launches()
+    got = live.search(items)
+    for name in ("bound_grid", "set_intersect", "bound_row_ub"):
+        assert ops.LAUNCHES[name] >= D, name
+    assert ops.LAUNCHES["hausdorff_grid"] > 0
+    for g, w in zip(got, local.search(items)):
+        for f in ("vals", "ids", "mask"):
+            a, b = getattr(g, f), getattr(w, f)
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.dtype == b.dtype and a.tobytes() == b.tobytes()

@@ -30,7 +30,9 @@ from repro.engine import LiveRepository as JLive
 from repro.engine import Query as JQuery
 from repro_torch import bridge
 from repro_torch.core import repo_mutate
+from repro_torch.core.distributed import DATA_AXIS, Mesh
 from repro_torch.engine import LiveRepository, Query, QueryEngine
+from repro_torch.engine.sharded import shard_repository
 
 N_INIT = 6
 LEAF = 8
@@ -104,12 +106,33 @@ def assert_results_bitwise(got, want):
                     a.op, name)
 
 
+def assert_shards_match(live, frozen):
+    """Every replica group's layout of a live repository on a mesh against
+    ``shard_repository`` of the frozen oracle over that group's devices:
+    slot counts, and every shard bit for bit."""
+    mesh = live.mesh
+    rows = ([Mesh(r, (DATA_AXIS,)) for r in mesh.devices]
+            if len(mesh.axis_names) == 2 else [mesh])
+    layouts = live.engine.dispatch.layouts
+    assert len(layouts) == len(rows)
+    for L, row in zip(layouts, rows):
+        want, n_padded = shard_repository(frozen, row)
+        assert (L.n_slots, L.n_slots_sharded) == (live.n_slots, n_padded)
+        assert len(L.shards) == len(want)
+        for got, w in zip(L.shards, want):
+            assert_repo_bitwise(got, w)
+
+
 def check_bit_identity(live, rng):
     """The tentpole bar: the resident repository equals the frozen oracle
     bit for bit, and a mixed batch (joinable ops included) on the live
-    engine equals the same batch on a cold engine over it."""
+    engine equals the same batch on a cold engine over it.  On a mesh,
+    every shard of every replica group also equals the frozen oracle split
+    over that group (``shard_repository``)."""
     frozen = live.frozen_repository()
-    assert_repo_bitwise(live.repo, frozen)
+    assert_repo_bitwise(live.gathered_repository(), frozen)
+    if live.mesh is not None:
+        assert_shards_match(live, frozen)
     qs = _queries(_mixed_specs(rng, live.live_ids))
     cold = QueryEngine(frozen, leaf_capacity=LEAF)
     assert_results_bitwise(live.search(qs), cold.search(qs))
@@ -162,19 +185,20 @@ def test_init_live_equals_build_frozen(seed):
     check_bit_identity(live, rng)
 
 
-def _run_interleaving(seed, steps=12):
+def _run_interleaving(seed, steps=12, mesh=None, checkpoints=None):
     """The port of the JAX package's random interleaving: ingest, delete,
     replace, search and replay, with the full bar checked after every
-    step."""
+    step (after the steps in ``checkpoints`` and the last one, when
+    given, as the JAX package's mesh runs do)."""
     rng = np.random.default_rng(seed)
     init = [_mk_dataset(rng) for _ in range(N_INIT)]
-    live = _live(init, result_cache_size=64)
+    live = _live(init, result_cache_size=64, mesh=mesh)
     model = {j: init[j] for j in range(N_INIT)}
     slots = SlotModel(N_INIT, live.n_slots)
     last = None
     mutated_since_search = True
     prev_epoch = live.epoch
-    for _ in range(steps):
+    for step in range(steps):
         kind = int(rng.integers(0, 5))
         if kind == 0:
             ds = _mk_dataset(rng)
@@ -214,7 +238,8 @@ def _run_interleaving(seed, steps=12):
         assert live.n_slots == slots.n_slots
         for j in range(live.n_slots):
             assert (live._slot_data.get(j) is None) == (model.get(j) is None)
-        check_bit_identity(live, rng)
+        if checkpoints is None or step in checkpoints or step == steps - 1:
+            check_bit_identity(live, rng)
     return live
 
 
@@ -246,12 +271,16 @@ def test_concurrent_prepare_at_stream_position(seed):
     """The serving schedule without threads: a group is prepared, a query
     batch runs with it in flight (and must see the pre-publish snapshot
     bit for bit), then the group publishes as one data epoch."""
+    _run_concurrent_prepare(seed)
+
+
+def _run_concurrent_prepare(seed, mesh=None, rounds=6, checkpoints=None):
     rng = np.random.default_rng(100 + seed)
     init = [_mk_dataset(rng) for _ in range(N_INIT)]
-    live = _live(init, result_cache_size=64)
+    live = _live(init, result_cache_size=64, mesh=mesh)
     model = {j: init[j] for j in range(N_INIT)}
     disp = live.engine.dispatch
-    for _ in range(6):
+    for round_ in range(rounds):
         specs = _group_specs(rng, model, int(rng.integers(1, 5)))
         epoch0, layout0 = live.epoch, disp.repo_epoch
         mc0 = live.stats.mutations_coalesced
@@ -277,7 +306,9 @@ def test_concurrent_prepare_at_stream_position(seed):
         assert live.epoch == epoch0 + 1 + grows
         assert live.stats.mutations_coalesced == mc0 + len(specs) - 1
         assert live.live_ids == set(model)
-        check_bit_identity(live, rng)
+        if (checkpoints is None or round_ in checkpoints
+                or round_ == rounds - 1):
+            check_bit_identity(live, rng)
 
 
 def test_deleted_slot_is_the_zero_row():

@@ -10,14 +10,16 @@ item.  The live lane (the live cases of ``tests/test_serve_search.py`` and
 its stream position, bitwise as a cold engine over the frozen build of
 that position, and adjacent mutations coalesce into one publish.  The
 multi-device options serve from a sharded or replicated engine over a CPU
-mesh; the live repository on a mesh raises ``NotImplementedError`` naming
-its ROADMAP item.  The traffic generator gives the JAX package's stream for the same
+mesh, the live repository too (``--live`` with a mesh option, or
+``LiveRepository(mesh=...)``), each response equal to the local live
+server's.  The traffic generator gives the JAX package's stream for the same
 seed, with and without a mutation lane.
 """
 import time
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import make_clustered_datasets
 from repro.launch import serve_search as jserve
@@ -78,7 +80,8 @@ def test_mixed_ops_one_drain(env):
     datasets, repo = env
     engine = QueryEngine(repo)
     server = _server(engine, max_batch=64, max_wait_ms=250.0)
-    traffic = make_traffic(repo, datasets, 27, seed=3)   # >= 2 of each kind
+    traffic = make_traffic(repo.space_lo, repo.space_hi, datasets, 27,
+                           seed=3)   # >= 2 of each kind
     assert {op for op, _ in traffic} == set(OPS)
     reqs = [Request(op, _to_query(op, p)) for op, p in traffic]
     for r in reqs:
@@ -325,7 +328,7 @@ def test_make_traffic_matches_jax(env):
     query sets, GBO signatures and eps."""
     datasets, repo = env
     _assert_same_stream(
-        make_traffic(repo, datasets, 36, seed=5),
+        make_traffic(repo.space_lo, repo.space_hi, datasets, 36, seed=5),
         jserve.make_traffic(bridge.to_numpy(repo), datasets, 36, seed=5))
 
 
@@ -334,29 +337,93 @@ def test_make_traffic_mutation_lane_matches_jax(env):
     (ids and jittered points) at the same positions, and the same queries
     around them."""
     datasets, repo = env
-    got = make_traffic(repo, datasets, 36, seed=5, mutate_every=4)
+    got = make_traffic(repo.space_lo, repo.space_hi, datasets, 36, seed=5,
+                       mutate_every=4)
     _assert_same_stream(got, jserve.make_traffic(
         bridge.to_numpy(repo), datasets, 36, seed=5, mutate_every=4))
     assert [op for op, _ in got[4::4]] == [
         "ingest", "delete", "replace"] * 2 + ["ingest", "delete"]
 
 
+#: the stream the live-mesh serving cases and their local reference run
+LIVE_ARGS = ["--device", "cpu", "--datasets", "10", "--requests", "20",
+             "--live", "--mutate-every", "4"]
+
+
+def _recorded_main(argv):
+    """``serve_search.main(argv)`` with the measured stream's responses
+    recorded in submission order: (server stats, [(op, response)])."""
+    recorded = []
+
+    class Recording(SearchServer):
+        def submit(self, op, **payload):
+            recorded.append((op, super().submit(op, **payload)))
+            return recorded[-1][1]
+
+        def submit_mutation(self, op, **payload):
+            recorded.append((op, super().submit_mutation(op, **payload)))
+            return recorded[-1][1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(serve_search, "SearchServer", Recording)
+        stats = serve_search.main(argv)
+    return stats, [(op, f.result(timeout=WAIT)) for op, f in recorded]
+
+
+@pytest.fixture(scope="module")
+def local_live_stream():
+    """The local live server's responses to ``LIVE_ARGS``'s stream."""
+    return _recorded_main(LIVE_ARGS)[1]
+
+
+def _serve_live_mesh():
+    """``LiveRepository(mesh=data_mesh(devices=["cpu"] * 3))`` (its rows
+    built on the mesh's lead device) behind a SearchServer, on the stream
+    ``main`` measures for ``LIVE_ARGS``: (server stats, [(op, response)])."""
+    from repro_torch.data import synthetic
+    from repro_torch.engine import data_mesh
+
+    lake = synthetic.trajectory_repository(10, seed=0)
+    live = LiveRepository(lake, leaf_capacity=16, theta=5,
+                          mesh=data_mesh(devices=["cpu"] * 3))
+    assert live.device == torch.device("cpu")
+    traffic = make_traffic(live.geometry.space_lo, live.geometry.space_hi,
+                           lake, 20, mutate_every=4)
+    server = SearchServer(live=live, device="cpu").start()
+    try:
+        futures = [(op, server.submit_mutation(op, **p)
+                    if op in serve_search.MUTATION_OPS
+                    else server.submit(op, **p)) for op, p in traffic]
+        got = [(op, f.result(timeout=WAIT)) for op, f in futures]
+    finally:
+        server.stop()
+    return server.stats, got
+
+
 @pytest.mark.parametrize("call,item", [
     pytest.param(c, "12b", id=f"{c}-12")
     for c in ("--sharded", "--replicas", "--data-shards", "live_mesh")])
-def test_unported_lanes_name_their_item(env, call, item):
-    """The multi-device engines serve (``test_main_serves_on_a_cpu_mesh``);
-    the live repository on a mesh, with ``--live`` or ``mesh=``, raises
-    naming ROADMAP item 12b before anything is built."""
-    datasets, repo = env
-    match = f"ROADMAP.md queue 1 item {item}"
-    with pytest.raises(NotImplementedError, match=match):
-        if call == "live_mesh":
-            LiveRepository(datasets, mesh=object(), device="cpu")
-        else:
-            arg = {"--replicas": ["2"], "--data-shards": ["2"]}.get(call, [])
-            serve_search.main(["--device", "cpu", "--datasets", "4", "--live",
-                               call, *arg])
+def test_unported_lanes_name_their_item(local_live_stream, call, item):
+    """The live repository on a mesh (ROADMAP item 12b) serves: ``--live``
+    with ``--sharded``, ``--replicas 2`` or ``--data-shards 3``, and a
+    ``LiveRepository(mesh=...)`` behind a server, each on a CPU mesh with
+    a mutation every 4th request.  Every
+    response equals the local live server's on the same stream: the
+    mutations' outcomes, and each query (ExactHaus and the joinable ops
+    by vals and ids: their counters depend on the split)."""
+    assert item == "12b"
+    if call == "live_mesh":
+        stats, got = _serve_live_mesh()
+    else:
+        arg = {"--replicas": ["2"], "--data-shards": ["3"]}.get(call, [])
+        stats, got = _recorded_main(LIVE_ARGS + [call, *arg])
+    assert stats.requests == 16 and stats.mutations == 4
+    want = local_live_stream
+    assert [op for op, _ in got] == [op for op, _ in want]
+    for (op, res), (_, ref) in zip(got, want):
+        if op in ("topk_hausdorff", "topk_overlap", "topk_coverage"):
+            res, ref = res[:2], ref[:2]
+        _assert_same(res, ref)
 
 
 @pytest.mark.parametrize("flags,name,groups,shards", [
@@ -384,7 +451,8 @@ def test_server_over_a_sharded_engine(env):
     datasets, repo = env
     engine = ShardedQueryEngine(repo, mesh=data_mesh(devices=["cpu"] * 3))
     server = _server(engine, max_batch=64, max_wait_ms=250.0)
-    traffic = make_traffic(repo, datasets, 27, seed=3)
+    traffic = make_traffic(repo.space_lo, repo.space_hi, datasets, 27,
+                           seed=3)
     reqs = [Request(op, _to_query(op, p)) for op, p in traffic]
     for r in reqs:
         server._queue.put(r)
