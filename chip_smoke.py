@@ -126,12 +126,33 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      ``shard_repository(build_frozen(...))``, a replace that gave new slot
      tensors to its owner shard alone, and a batch of every op bitwise a
      cold engine on the same mesh.  Every kernel launch of those batches
-     is kept and held bitwise against its plain version.
+     is kept and held bitwise against its plain version;
+ 16. the pairwise and discovery paths on the phase-2 repository:
+     ``hausdorff_pair_exact`` of each of phase 4's 32 queries against its
+     ExactHaus winner and on phase 14's ring pair (one ``bound_matrices``
+     launch a call; h bitwise phase 4's value and
+     ``ops.directed_hausdorff_pairs``, except where the glb term sets it
+     from above, counted and held to 4 ulp), ``hausdorff_pair_approx``
+     within 2 eps_eff of it, ``frontier_bounds`` at levels 0..3 for 4
+     queries against every slot (one ``bound_matrices`` launch a call,
+     bitwise the ``bound_grid`` level), ``gbo_frontier_stats`` for the 32
+     query signatures (one ``set_intersect`` launch a call; its counts
+     bitwise phase 8's numpy counts, the kth value topk_gbo's, every
+     upper-tree leaf holding one of the top k surviving), ``topk_emd``
+     for 4 repository datasets, full and prefiltered (histograms bitwise
+     a numpy bincount, each query first, values within 1e-4 of the port's
+     CPU run on the same histograms, FP32 products at "highest"; the gap
+     to a float64 numpy Sinkhorn and the latency printed), and ``curate``
+     on 64 trajectories, its selection equal to the port's CPU run.
+     Every ``bound_matrices`` launch is kept and held bitwise against its
+     plain version.
 
 The second-to-last line is the kernel table as JSON (each row's
 ``launches`` from the local path, ``sharded_launches`` per phase-14 path
 (per search) and per phase-15 path: ``live_mesh_4`` over the stream,
-``live_growth_3`` and ``live_growth_2x2`` per batch), the last line
+``live_growth_3`` and ``live_growth_2x2`` per batch, ``pair_launches``
+per phase-16 path; ``bound_matrices`` and ``set_intersect`` add
+``at_path_shapes``, their times at phase 16's shapes), the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
@@ -719,7 +740,9 @@ def dataset_point_path(repo, engine, q_sets, q_batch, q_sigs_np, eps,
 def dataset_point_gates(repo, res, lo, hi, q_batch, eps, search,
                         point_search, ops):
     """Phase 8: the gates of the dataset -> point path.  Returns the
-    nn_distance launches of the NNP oracle check."""
+    nn_distance launches of the NNP oracle check, the numpy GBO counts
+    (queries x datasets) and the numpy cell occupancy of the datasets and
+    of the queries (bool, (datasets, cells) and (queries, cells))."""
     n = N_DATASETS
     pts = repo.ds_index.points[:n].cpu().numpy()
     val = repo.ds_index.valid[:n].cpu().numpy()
@@ -851,7 +874,7 @@ def dataset_point_gates(repo, res, lo, hi, q_batch, eps, search,
         f"nnp_batched (nn_distance launches {nn_launches}, {nnp_s * 1e3:.3f} "
         f"ms); {n_ties} query points took another of several tied nearest "
         f"points; one pair equal to numpy")
-    return nn_launches
+    return nn_launches, counts, (occ_d > 0, occ_q > 0)
 
 
 def join_items(q_sets, q_sigs_np, lo, hi, Query, Pipeline):
@@ -1495,6 +1518,7 @@ def kernel_targets():
 #: launch counter of each kept wrapper
 KEPT_KERNEL = {"directed_hausdorff_lanes": "hausdorff_grid",
                "bound_grid": "bound_grid", "bound_row_ub": "bound_row_ub",
+               "bound_matrices": "bound_matrices",
                "intersect_counts": "set_intersect",
                "min_sq_dists_pairs": "min_sq_dists",
                "nn_distance_batched": "nn_distance"}
@@ -1529,6 +1553,12 @@ def check_kept(label, calls):
             elif name == "bound_row_ub":
                 ok = bits_equal(bound_matrix.bound_row_ub(*a),
                                 ref.bound_row_ub(*a))
+            elif name == "bound_matrices":
+                args, kw = a
+                got = bound_matrix.bound_matrices(*args, **kw)
+                want = ref.bound_matrix(*args)
+                ok = bits_equal(got[1], want[1]) and (
+                    got[0] is None or bits_equal(got[0], want[0]))
             elif name == "intersect_counts":
                 ok = torch.equal(set_intersect.intersect_counts(*a),
                                  ref.set_intersect_count(*a))
@@ -1973,6 +2003,500 @@ def live_mesh_phase(ref, datasets, growth_items, ops, serve_search,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: pairwise Hausdorff, frontier bounds, GBO traversal stats,
+# top-k EMD and data discovery
+# ---------------------------------------------------------------------------
+
+#: the EMD queries (repository slots), the histogram resolution and k
+EMD_QUERIES = (0, 1, 2, 3)
+EMD_THETA = 4
+#: the curated lake: this many trajectories, k and theta
+CURATE_N = 64
+CURATE_K = 12
+CURATE_THETA = 5
+
+
+#: the kernels each phase-16 path must launch
+PATH_KERNELS = {"pair_exact": ("bound_matrices",),
+                "frontier_bounds": ("bound_matrices",),
+                "gbo_frontier_stats": ("set_intersect",),
+                "curate": ("bound_grid", "hausdorff_grid")}
+
+
+def row_of(tree, i):
+    return type(tree)(*[x[i] for x in tree])
+
+
+def ulps_above(a: float, b: float) -> int:
+    """How many float32 steps a lies above b (a >= b >= 0)."""
+    return int(np.float32(a).view(np.int32)) - int(np.float32(b).view(
+        np.int32))
+
+
+def at_shape(name, inputs, shapes, launch, plain, n_ops, reps,
+             n_in_bytes=None):
+    """A kernel's numbers at one path's operands: ``launch`` and ``plain``
+    (the wrapper and its plain version) each return a tensor or a tuple
+    of them; the kernel must be bitwise the plain version.  The bound
+    counts the inputs' bytes, or ``n_in_bytes`` where the function needs
+    fewer than the launch is given."""
+    def flat(x):
+        return x if isinstance(x, torch.Tensor) else torch.stack(x)
+
+    got, want = flat(launch(*inputs)), flat(plain(*inputs))
+    torch.cuda.synchronize()
+    if n_in_bytes is None:
+        n_in_bytes = nbytes(*inputs)
+    entry = kernel_row(name, "", "", shapes, got, want,
+                       kernel_times(lambda: launch(*inputs), reps),
+                       event_ms(lambda: plain(*inputs), 3, 1),
+                       n_in_bytes + nbytes(got), n_ops)
+    check(entry["bitwise"], f"{name} at {shapes}: kernel differs from its "
+          f"plain version")
+    return {key: entry[key] for key in (
+        "shapes", "bitwise", "max_abs_err", "ms", "eager_ms", "plain_ms",
+        "bound_ms", "bound_by", "bound_pipe")}
+
+
+def bound_matrices_at(args, reps, bound_matrix, ref, *, one_query=False):
+    """``bound_matrices`` at one path's frontiers (oq, rq, od, rd): per
+    node pair 3W - 1 FP32 operations for cd^2, then sub, max, add, add,
+    and two roots; rd * rd once per corpus node.  With ``one_query`` every
+    pair holds a copy of one query frontier (``frontier_bounds``): the
+    bound reads it once, and ``query_copy_ms`` times making the copies."""
+    oq, rq, od, _ = args
+    P, nq, W = oq.shape
+    nd = od.shape[1]
+    n_in = None
+    if one_query:
+        check(torch.equal(oq, oq[:1].expand_as(oq))
+              and torch.equal(rq, rq[:1].expand_as(rq)),
+              "frontier_bounds: the pairs' query frontiers differ")
+        n_in = nbytes(oq[0], rq[0], *args[2:])
+    entry = at_shape("bound_matrices", args,
+                     {"P": P, "nq": nq, "nd": nd, "W": W},
+                     bound_matrix.bound_matrices, ref.bound_matrix,
+                     {"fp32": P * nq * nd * (3 * W + 3) + P * nd,
+                      "mufu": 2 * P * nq * nd}, reps, n_in)
+    if one_query:
+        q, r = oq[:1], rq[:1]
+        entry["query_copy_ms"] = graph_ms(
+            lambda: (q.expand(P, -1, -1).contiguous(),
+                     r.expand(P, -1).contiguous()), reps)
+    return entry
+
+
+def pair_exact_part(repo, q_batch, res, q_sets, datasets, ops, search,
+                    build_query_index, bound_matrix):
+    """hausdorff_pair_exact for each query against its ExactHaus winner,
+    and on the ring pair: one bound_matrices launch a call; h bitwise the
+    engine's value and ``ops.directed_hausdorff_pairs``, except where the
+    glb term sets it (counted, within 4 ulp above).  Returns (summary,
+    launches, the ring pair's kept operands, the pairs and their h)."""
+    dev = q_batch.points.device
+    pairs = [(row_of(q_batch, b), row_of(repo.ds_index, int(r.ids[0])),
+              r.vals[0]) for b, r in enumerate(res)]
+    q_ring, _ = build_query_index(q_sets[0], leaf_capacity=16, theta=THETA,
+                                  device=dev)
+    d_ring, _ = build_query_index(datasets[0], leaf_capacity=16,
+                                  theta=THETA, device=dev)
+    pairs.append((q_ring, d_ring, None))
+    ops.reset_launches()
+    hs, fracs, secs = [], [], []
+    with keep_operands([(bound_matrix, "bound_matrices")]) as calls:
+        for i, (q, d, _) in enumerate(pairs):
+            n0 = ops.LAUNCHES["bound_matrices"]
+            (h, pruned), t = sync_time(
+                lambda: search.hausdorff_pair_exact(q, d))
+            check(ops.LAUNCHES["bound_matrices"] == n0 + 1,
+                  f"hausdorff_pair_exact {i}: "
+                  f"{ops.LAUNCHES['bound_matrices'] - n0} bound_matrices "
+                  f"launches, not 1")
+            hs.append(float(h))
+            fracs.append(float(pruned))
+            secs.append(t)
+    launches = dict(ops.LAUNCHES)
+    # the gates, after the path's launches are read
+    glb_set = []
+    for i, ((q, d, engine_h), h) in enumerate(zip(pairs, hs)):
+        exact = float(ops.directed_hausdorff_pairs(
+            q.points, d.points[None], q.valid, d.valid[None])[0])
+        if engine_h is not None:
+            check(np.float32(exact) == engine_h,
+                  f"pair {i}: directed_hausdorff_pairs {exact!r} is not "
+                  f"phase 4's ExactHaus value {engine_h!r}")
+        if h != exact:
+            up = ulps_above(h, exact)
+            check(0 < up <= 4, f"hausdorff_pair_exact {i}: {h!r} is {up} "
+                  f"ulp from the exact {exact!r}")
+            glb_set.append((i, up))
+    args, _ = calls["bound_matrices"][-1]
+    checked = check_kept("hausdorff_pair_exact", calls)
+    summary = {
+        "pairs": len(pairs), "ring_pair_points": [len(q_sets[0]),
+                                                  len(datasets[0])],
+        "ring_pair_h": hs[-1], "glb_set_pairs": glb_set,
+        "pruned_fraction_mean": float(np.mean(fracs)),
+        "pruned_fraction_min": min(fracs), "pruned_fraction_max": max(fracs),
+        "ring_pair_pruned_fraction": fracs[-1],
+        "call_ms_median": float(np.median(secs)) * 1e3,
+        "kept_launches_checked": checked,
+        "bound_matrices_launches": launches["bound_matrices"]}
+    return summary, launches, args, pairs, hs
+
+
+def pair_approx_part(pairs, hs, eps, search):
+    """|hausdorff_pair_approx - hausdorff_pair_exact| <= 2 eps_eff, eps_eff
+    as ``topk_hausdorff_approx`` derives it for the pair's two trees."""
+    worst = 0.0
+    for i, ((q, d, _), h) in enumerate(zip(pairs, hs)):
+        a = float(search.hausdorff_pair_approx(q, d, eps))
+        radius = []
+        for t in (q, d):
+            _, r, c = search._level_arrays(t, search.approx_level(t, eps))
+            radius.append(float(torch.amax(torch.where(c > 0, r, 0.0))))
+        eps_eff = max(eps, *radius)
+        worst = max(worst, abs(a - h) / (2 * eps_eff))
+        check(abs(a - h) <= 2 * eps_eff + 1e-4,
+              f"hausdorff_pair_approx {i}: |{a} - {h}| > 2 eps_eff {eps_eff}")
+    return {"pairs": len(pairs), "eps": eps,
+            "worst_err_over_2eps_eff": worst}
+
+
+def frontier_part(repo, q_batch, ops, search, bound_matrix):
+    """frontier_bounds at levels 0..3 for 4 queries against every slot:
+    one bound_matrices launch a call, bitwise level l of the fused
+    bound_grid pass, every kept launch bitwise its plain version.  Returns
+    (summary, launches, the kept operands at level 3)."""
+    n_q = 4
+    batch = type(q_batch)(*[x[:n_q] for x in q_batch])
+    LBs, UBs = search._frontier_bound_all_levels(batch, repo.ds_index, 3)
+    ops.reset_launches()
+    secs = []
+    with keep_operands([(bound_matrix, "bound_matrices")]) as calls:
+        for b in range(n_q):
+            q = row_of(q_batch, b)
+            for level in range(4):
+                n0 = ops.LAUNCHES["bound_matrices"]
+                (LB, UB), t = sync_time(lambda: search.frontier_bounds(
+                    q, repo.ds_index, level, level))
+                secs.append(t)
+                check(ops.LAUNCHES["bound_matrices"] == n0 + 1,
+                      f"frontier_bounds: {ops.LAUNCHES['bound_matrices'] - n0}"
+                      f" bound_matrices launches, not 1")
+                check(bits_equal(LB, LBs[level, b])
+                      and bits_equal(UB, UBs[level, b]),
+                      f"frontier_bounds query {b} level {level}: not "
+                      f"bitwise the bound_grid level")
+    launches = dict(ops.LAUNCHES)
+    args, _ = calls["bound_matrices"][-1]
+    checked = check_kept("frontier_bounds", calls)
+    return ({"queries": n_q, "levels": [0, 1, 2, 3], "slots": repo.n_slots,
+             "call_ms_median": float(np.median(secs)) * 1e3,
+             "kept_launches_checked": checked,
+             "bound_matrices_launches": launches["bound_matrices"]},
+            launches, args)
+
+
+def np_gbo_walk(order, valid, depth, occ_d, occ_q, counts, k):
+    """The pruned GBO walk of the upper tree in numpy, from the datasets'
+    cell occupancy (phase 8's, built from the points): a node's bound is
+    the number of the query's cells that any dataset beneath it occupies.
+    ``order`` maps tree slots to dataset slots, ``valid`` is in dataset
+    order.  Returns, per query, (nodes visited, {surviving leaf: its
+    datasets})."""
+    n = occ_d.shape[0]
+    live = valid[order] & (order < n)
+    occ = np.zeros((order.shape[0], occ_d.shape[1]), bool)
+    occ[live] = occ_d[order[live]]
+    bounds, sizes = [], []
+    for level in range(depth + 1):
+        nseg = 1 << level
+        bounds.append(occ.reshape(nseg, -1, occ.shape[1]).any(axis=1))
+        sizes.append(live.reshape(nseg, -1).sum(axis=1))
+    sizes = np.concatenate(sizes)
+    bounds = (np.concatenate(bounds).astype(np.float32)
+              @ occ_q.T.astype(np.float32)).astype(np.int64)  # exact
+    first_leaf = (1 << depth) - 1
+    out = []
+    for b in range(occ_q.shape[0]):
+        kth = np.sort(counts[b])[-k]
+        visited, leaves, stack = 0, {}, [0]
+        while stack:
+            node = stack.pop()
+            visited += 1
+            if sizes[node] == 0 or bounds[node, b] < kth:
+                continue
+            if node >= first_leaf:
+                leaves[node - first_leaf] = int(sizes[node])
+                continue
+            stack += [2 * node + 1, 2 * node + 2]
+        out.append((visited, leaves))
+    return out
+
+
+def gbo_part(repo, q_sigs, gbo_counts, gbo_occ, r_gbo, ops, search,
+             set_intersect, ref):
+    """gbo_frontier_stats for every query signature: one set_intersect
+    launch a call, its counts (the kept launch run again) bitwise its plain
+    version and phase 8's numpy counts, the kth value topk_gbo's; its
+    nodes visited and surviving leaves those of a numpy walk of the same
+    tree from phase 8's cell occupancy, every leaf that holds one of the
+    top k among that walk's survivors, and the survivors holding at least
+    k datasets.  Returns (summary, launches, the kept operands)."""
+    up = repo.repo
+    order = up.order.cpu().numpy()
+    slot_of = np.argsort(order)                 # dataset slot -> tree slot
+    f_up = order.shape[0] >> up.depth
+    walks = np_gbo_walk(order, repo.ds_valid.cpu().numpy(), up.depth,
+                        *gbo_occ, gbo_counts, K)
+    ops.reset_launches()
+    stats, secs = [], []
+    with keep_operands([(set_intersect, "intersect_counts")]) as calls:
+        for b in range(len(r_gbo)):
+            n0 = ops.LAUNCHES["set_intersect"]
+            st, t = sync_time(
+                lambda: search.gbo_frontier_stats(repo, q_sigs[b], K))
+            check(ops.LAUNCHES["set_intersect"] == n0 + 1,
+                  f"gbo_frontier_stats {b}: "
+                  f"{ops.LAUNCHES['set_intersect'] - n0} set_intersect "
+                  f"launches, not 1")
+            stats.append(st)
+            secs.append(t)
+    launches = dict(ops.LAUNCHES)
+    held = []
+    for b, (r, st, (sa, sb), (visited, leaves)) in enumerate(zip(
+            r_gbo, stats, calls["intersect_counts"], walks)):
+        exact = set_intersect.intersect_counts(sa, sb)[0]
+        check(torch.equal(exact, ref.set_intersect_count(sa, sb)[0]),
+              f"gbo_frontier_stats {b}: kept launch differs from its plain "
+              f"version")
+        exact = exact[:N_DATASETS].cpu().numpy()
+        check(np.array_equal(exact, gbo_counts[b]),
+              f"gbo_frontier_stats {b}: counts differ from phase 8's numpy "
+              f"counts")
+        check(np.sort(exact)[-K] == r.vals[K - 1],
+              f"gbo_frontier_stats {b}: kth {np.sort(exact)[-K]} is not "
+              f"topk_gbo's {r.vals[K - 1]}")
+        check((st.nodes_evaluated, st.candidates_after_bounds)
+              == (visited, len(leaves)),
+              f"gbo_frontier_stats {b}: {st.nodes_evaluated} nodes visited "
+              f"and {st.candidates_after_bounds} surviving leaves; the "
+              f"numpy walk {visited} and {len(leaves)}")
+        top = set((slot_of[r.ids] // f_up).tolist())
+        check(top <= set(leaves),
+              f"gbo_frontier_stats {b}: leaves {sorted(top - set(leaves))} "
+              f"hold top-{K} datasets but were pruned")
+        held.append(sum(leaves.values()))
+        check(held[-1] >= K, f"gbo_frontier_stats {b}: the surviving leaves "
+              f"hold {held[-1]} datasets, fewer than k = {K}")
+    survivors = [st.candidates_after_bounds for st in stats]
+    return ({"queries": len(r_gbo), "k": K, "tree_nodes": up.counts.shape[0],
+             "leaf_datasets": f_up,
+             "survivors_mean": float(np.mean(survivors)),
+             "survivors_min": min(survivors),
+             "datasets_in_survivors_min": min(held),
+             "nodes_visited_mean": float(np.mean(
+                 [st.nodes_evaluated for st in stats])),
+             "equal_to_numpy_walk": len(walks),
+             "call_ms_median": float(np.median(secs)) * 1e3,
+             "set_intersect_launches": launches["set_intersect"]},
+            launches, calls["intersect_counts"][0])
+
+
+def np_sinkhorn(a, b, cost, reg, iters):
+    """float64 numpy Sinkhorn, the JAX package's iteration."""
+    a = a / max(a.sum(), 1e-9)
+    b = b / max(b.sum(), 1e-9)
+    K_ = np.exp(-cost / reg)
+    v = np.ones_like(b)
+    for _ in range(iters):
+        u = a / np.maximum(K_ @ v, 1e-9)
+        v = b / np.maximum(K_.T @ u, 1e-9)
+    return float(np.sum(u[:, None] * K_ * v[None, :] * cost))
+
+
+def emd_part(repo, ops):
+    """topk_emd for 4 repository datasets as queries, full and
+    prefiltered: histograms bitwise a numpy bincount; values finite and
+    >= 0 and within 1e-4 of the port's CPU run on the same histograms, ids
+    equal where neighbouring values differ by more; each query first in
+    the full form, and in the prefiltered form wherever the overlap
+    prefilter keeps it (it orders by ``hists @ q_hist``, which a dataset
+    more concentrated on the query's cells can exceed: such queries are
+    counted); the prefiltered values within 1e-4 of the best k of one
+    Sinkhorn batch over every slot, restricted to the filter's
+    candidates; the largest gap to a float64 numpy Sinkhorn, and each
+    form's latency."""
+    from repro_torch.core import emd
+
+    check(torch.get_float32_matmul_precision() == "highest",
+          f"float32 matmul precision is "
+          f"{torch.get_float32_matmul_precision()!r}, not 'highest'")
+    n = N_DATASETS
+    lo, hi = repo.space_lo, repo.space_hi
+    idx = repo.ds_index
+    n_cells = 1 << (2 * EMD_THETA)
+    hists = emd.cell_histogram(idx.points, idx.valid, lo, hi, EMD_THETA)
+    pts, val = idx.points[:n].cpu().numpy(), idx.valid[:n].cpu().numpy()
+    cells = np_cells(pts, lo.cpu().numpy(), hi.cpu().numpy(), EMD_THETA)
+    rows = np.broadcast_to(np.arange(n)[:, None], val.shape)
+    counts = np.bincount((rows * n_cells + cells)[val],
+                         minlength=n * n_cells).reshape(n, n_cells)
+    want = (counts.astype(np.float32)
+            / np.maximum(counts.sum(axis=1, keepdims=True), 1).astype(
+                np.float32))
+    check(np.array_equal(hists[:n].cpu().numpy().view(np.uint32),
+                         want.view(np.uint32)),
+          "topk_emd: histograms differ from the numpy bincount")
+    del pts, val, cells, rows, counts, want
+    cost = emd.cost_matrix(lo, hi, EMD_THETA)
+    reg = emd.REG_CELLS / (1 << EMD_THETA)
+    cpu = [x.cpu() for x in (hists, repo.ds_valid, cost)]
+    prefilter = max(16, 2 * K)
+    ops.reset_launches()
+    out = {"queries": list(EMD_QUERIES), "k": K, "theta": EMD_THETA,
+           "prefilter": prefilter, "slots": repo.n_slots}
+    for form, pf in (("full", 0), ("prefiltered", prefilter)):
+        lat, gaps, worst_np, dropped = [], 0.0, 0.0, []
+        for i in EMD_QUERIES:
+            run = lambda: emd.topk_emd(repo, idx.points[i],   # noqa: E731
+                                       idx.valid[i], K, theta=EMD_THETA,
+                                       prefilter=pf)
+            run()
+            (v, ids), secs = sync_time(run)
+            lat.append(secs * 1e3)
+            v, ids = v.cpu().numpy(), ids.cpu().numpy()
+            wv, wi = emd.topk_emd_hists(cpu[0][i], *cpu, K, theta=EMD_THETA,
+                                        prefilter=pf)
+            wv, wi = wv.numpy(), wi.numpy()
+            check(np.isfinite(v).all() and (v >= 0).all(),
+                  f"topk_emd {form} {i}: values {v}")
+            check(np.allclose(v, wv, rtol=1e-4, atol=0),
+                  f"topk_emd {form} {i}: {v} not within 1e-4 of the CPU's "
+                  f"{wv}")
+            sep = np.abs(np.diff(wv)) > 1e-4 * np.abs(wv[1:])
+            sure = np.r_[True, sep] & np.r_[sep, True]
+            check(np.array_equal(ids[sure], wi[sure]),
+                  f"topk_emd {form} {i}: ids {ids} differ from the CPU's "
+                  f"{wi} where the values are apart")
+            if pf:
+                scores = torch.where(repo.ds_valid, hists @ hists[i], -1.0)
+                cand = torch.sort(scores, descending=True,
+                                  stable=True).indices[:pf]
+                kept = bool((cand == i).any())
+                if not kept:
+                    dropped.append(i)
+                every = emd.sinkhorn_emd(hists[i], hists, cost, reg=reg)
+                in_cand = torch.zeros_like(repo.ds_valid).index_fill_(
+                    0, cand, True)
+                sub = torch.where(repo.ds_valid & in_cand, every,
+                                  float("inf"))
+                sub = torch.sort(sub, stable=True).values[:K].cpu().numpy()
+                check(np.allclose(v, sub, rtol=1e-4, atol=0),
+                      f"topk_emd {form} {i}: {v} not within 1e-4 of the "
+                      f"full batch's best among the candidates {sub}")
+            else:
+                kept = True
+            check(ids[0] == i or not kept,
+                  f"topk_emd {form} {i}: ranks {ids[0]} first")
+            gaps = max(gaps, float(np.max(np.abs(v - wv) / np.abs(wv))))
+            a = hists[i].double().cpu().numpy()
+            c64 = cost.double().cpu().numpy()
+            for val_, j in zip(v, ids):
+                ref64 = np_sinkhorn(a, hists[j].double().cpu().numpy(), c64,
+                                    reg, emd.SINKHORN_ITERS)
+                worst_np = max(worst_np, abs(float(val_) - ref64) / ref64)
+        out[form] = {"latency_ms": lat,
+                     "latency_ms_median": float(np.median(lat)),
+                     "max_rel_gap_to_cpu": gaps,
+                     "max_rel_gap_to_float64_numpy": worst_np}
+        if pf:
+            out[form]["queries_dropped_by_prefilter"] = dropped
+    out["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+    return out
+
+
+def curate_part(datasets, dev, ops):
+    """curate on 64 trajectories, dataset 0 the exemplar, on the card:
+    the selection equal to the port's CPU curate on the same lake."""
+    from repro_torch.data import discovery
+
+    lake = datasets[:CURATE_N]
+    ops.reset_launches()
+    (kept, _, info), secs = sync_time(lambda: discovery.curate(
+        lake, lake[0], k=CURATE_K, theta=CURATE_THETA, device=dev))
+    launches = dict(ops.LAUNCHES)
+    want, _, winfo = discovery.curate(lake, lake[0], k=CURATE_K,
+                                      theta=CURATE_THETA, device="cpu")
+    check(kept == want and info["search_stats"] == winfo["search_stats"],
+          f"curate on the card selected {kept}, on the CPU {want}")
+    check(kept[0] == 0, f"curate: the exemplar is not first in {kept}")
+    return {"datasets": CURATE_N, "k": CURATE_K, "theta": CURATE_THETA,
+            "selected": kept, "deduped_away": info["deduped_away"],
+            "card_s": secs,
+            "launches": {k: v for k, v in launches.items() if v}}, launches
+
+
+def pair_ops_phase(repo, q_batch, res, q_sigs, gbo_counts, gbo_occ, r_gbo,
+                   eps, q_sets, datasets, rows):
+    """Phase 16.  Adds the new paths' launches to each kernel row
+    (``pair_launches``) and the path shapes of ``bound_matrices`` and
+    ``set_intersect`` to theirs (``at_path_shapes``)."""
+    from repro_torch.core import search
+    from repro_torch.core.build import build_query_index
+    from repro_torch.kernels import bound_matrix, ops, ref, set_intersect
+
+    t0 = time.perf_counter()
+    paths = {}
+    exact, paths["pair_exact"], pe_args, pairs, hs = pair_exact_part(
+        repo, q_batch, res, q_sets, datasets, ops, search, build_query_index,
+        bound_matrix)
+    log("pair exact: " + json.dumps(exact))
+    log("pair approx: " + json.dumps(pair_approx_part(pairs, hs, eps,
+                                                      search)))
+    fb, paths["frontier_bounds"], fb_args = frontier_part(
+        repo, q_batch, ops, search, bound_matrix)
+    log("frontier bounds: " + json.dumps(fb))
+    gbo, paths["gbo_frontier_stats"], (sa, sb) = gbo_part(
+        repo, q_sigs, gbo_counts, gbo_occ, r_gbo, ops, search, set_intersect,
+        ref)
+    log("gbo frontier stats: " + json.dumps(gbo))
+    out = emd_part(repo, ops)
+    paths["topk_emd"] = dict(ops.LAUNCHES)
+    log("topk emd: " + json.dumps(out))
+    cur, paths["curate"] = curate_part(datasets, q_batch.points.device, ops)
+    log("curate: " + json.dumps(cur))
+
+    for path, counts in paths.items():
+        for name in PATH_KERNELS.get(path, ()):
+            check(counts[name] > 0, f"{path} launched no {name}")
+    by_name = {r["name"]: r for r in rows}
+    by_name["bound_matrices"]["at_path_shapes"] = {
+        "pair_exact": bound_matrices_at(pe_args, 50, bound_matrix, ref),
+        "frontier_bounds": bound_matrices_at(fb_args, 20, bound_matrix,
+                                             ref, one_query=True)}
+    # the binary tensor cores' rate is unpublished: bytes bound it
+    by_name["set_intersect"]["at_path_shapes"] = {
+        "gbo_frontier_stats": at_shape(
+            "set_intersect", (sa, sb),
+            {"na": sa.shape[0], "nb": sb.shape[0], "W": sa.shape[1]},
+            set_intersect.intersect_counts, ref.set_intersect_count, {},
+            50)}
+    for r in rows:
+        r["pair_launches"] = {path: counts[r["name"]]
+                              for path, counts in paths.items()}
+        for key, e in r.get("at_path_shapes", {}).items():
+            log(f"kernel {r['name']} at {key} {e['shapes']}: "
+                f"ms={e['ms']:.5f} eager_ms={e['eager_ms']:.4f} "
+                f"plain_ms={e['plain_ms']:.4f} bound_ms={e['bound_ms']:.6f} "
+                f"({e['bound_pipe']})" + (
+                    f" query_copy_ms={e['query_copy_ms']:.5f}"
+                    if "query_copy_ms" in e else ""))
+    log(f"pair ops phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -2296,7 +2820,7 @@ def main() -> int:
     # ---- 8. the gates -----------------------------------------------------
     for name in ("set_intersect", "bound_row_ub", "bound_matrices"):
         launches[name] = launches2[name]
-    launches["nn_distance"] = dataset_point_gates(
+    launches["nn_distance"], gbo_counts, gbo_occ = dataset_point_gates(
         repo, res2, lo, hi, q_batch, eps, search, point_search, ops)
 
     # ---- 9. the join batch: joinable ops and dataset -> dataset pipelines
@@ -2357,6 +2881,11 @@ def main() -> int:
         r["launches"] = launches[r["name"]]
         r["sharded_launches"] = {path: counts[r["name"]]
                                  for path, counts in mesh_out.items()}
+
+    # ---- 16. pairwise Hausdorff, frontier bounds, GBO stats, EMD, curate
+    pair_ops_phase(repo, q_batch, res, q_sigs, gbo_counts, gbo_occ,
+                   res2[2 * N_QUERIES:3 * N_QUERIES], eps, q_sets, datasets,
+                   rows)
     rows += j_rows
     log(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))

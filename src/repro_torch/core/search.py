@@ -8,6 +8,10 @@ Counterpart of ``repro.core.search``:
                               (``ops.set_intersect_counts``) plus a top-k;
   * ApproHaus       (Lemma 1) center-distance frontier scores at the first
                               level whose node radii are all below eps;
+  * pairwise        (Figs. 15/19) ExactHaus and ApproHaus between two
+                              indexed datasets, and the per-level frontier
+                              bounds of one query against every slot (one
+                              ``ops.bound_matrices`` call each);
   * ExactHaus       (Def. 8)  branch-and-bound over the unified index, for
                               a batch of B queries at once:
 
@@ -39,10 +43,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import distributed, geometry
+from repro_torch.core import distributed, geometry, zorder
 from repro_torch.core.index import DatasetIndex
 from repro_torch.core.repo_index import Repository
-from repro_torch.kernels import hausdorff, ops
+from repro_torch.kernels import hausdorff, ops, ref
 from repro_torch.kernels.ref import BIG
 
 # ExactHaus prune guard: a candidate survives while LB <= tau * TAU_GUARD,
@@ -148,6 +152,41 @@ def topk_gbo(repo: Repository, q_sig, k: int):
     counts = torch.where(repo.ds_valid, counts, -1)
     vals, ids = _topk_largest(counts, k)
     return vals, torch.where(vals < 0, -1, ids)
+
+
+def gbo_frontier_stats(repo: Repository, q_sig, k: int) -> SearchStats:
+    """Node-evaluation accounting for the tree-pruned GBO traversal.
+
+    The upper node signature is the union of its children's (Def. 16), so
+    popcount(q AND node) bounds every descendant's GBO from above; a node
+    whose bound falls below the kth-best exact count is pruned.  The exact
+    counts are one ``ops.set_intersect_counts`` call; the traversal runs
+    on the host, as in the JAX package.  Reports how much of the tree the
+    pruning visits."""
+    up = repo.repo
+    exact = ops.set_intersect_counts(q_sig[None, :], repo.ds_sigs)[0]
+    exact = torch.where(repo.ds_valid, exact, -1).cpu().numpy()
+    kth = np.sort(exact)[-k] if exact.size >= k else -1
+    # every node's bound at once
+    ubs = zorder.sig_intersect_count(q_sig, up.sigs).cpu().numpy()
+    counts_nodes = up.counts.cpu().numpy()
+
+    visited = 0
+    frontier = [0]
+    survivors = 0
+    while frontier:
+        node = frontier.pop()
+        visited += 1
+        if counts_nodes[node] == 0:
+            continue
+        if ubs[node] < kth:
+            continue
+        if (node + 1).bit_length() - 1 == up.depth:     # a leaf of the tree
+            survivors += 1
+            continue
+        frontier.extend((2 * node + 1, 2 * node + 2))
+    total = counts_nodes.shape[0]
+    return SearchStats(visited, survivors, 0, 1.0 - visited / max(total, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -540,3 +579,96 @@ def topk_hausdorff_approx(repo: Repository, q_idx: DatasetIndex, k: int,
     r_q = float(torch.amax(torch.where(cq > 0, rq, 0.0)))
     r_d = float(torch.amax(torch.where(cd > 0, rd, 0.0)))
     return top_vals, top_ids, (lq, ld, max(eps, r_q, r_d))
+
+
+# ---------------------------------------------------------------------------
+# pairwise Hausdorff (paper Figs. 15/19 operating mode)
+# ---------------------------------------------------------------------------
+
+
+def _masked_frontier_bounds(lb, ub, d_ok, q_ok):
+    """Eq. 4 matrices (..., nq, nd) with unoccupied corpus nodes (d_ok
+    (..., nd) False) set to BIG.  Returns (masked lb, row upper bounds
+    (..., nq), LB): LB is the max of the row lower bounds over occupied
+    query nodes (q_ok (..., nq))."""
+    d_ok = d_ok[..., None, :]
+    lb = torch.where(d_ok, lb, BIG)
+    row_ub = torch.amin(torch.where(d_ok, ub, BIG), dim=-1)
+    LB = torch.amax(torch.where(q_ok, torch.amin(lb, dim=-1), -BIG), dim=-1)
+    return lb, row_ub, LB
+
+
+def frontier_bounds(q_idx: DatasetIndex, ds_index: DatasetIndex,
+                    level_q: int, level_d: int):
+    """Per-dataset (LB, UB) on H(Q -> D_i) from the level-l node frontiers:
+    LB_i = max_q min_d lb(q, d) and UB_i = max_q min_d ub(q, d) over
+    occupied nodes.  q_idx is one query row, ds_index a (B, ...) batch.
+
+    One ``ops.bound_matrices`` call for all B pairs, the query frontier
+    copied onto the pair axis.  Returns (LB (B,), UB (B,))."""
+    oq, rq, cq = _level_arrays(q_idx, level_q)
+    od, rd, cd = _level_arrays(ds_index, level_d)
+    B = od.shape[0]
+    lb, ub = ops.bound_matrices(oq.expand(B, -1, -1).contiguous(),
+                                rq.expand(B, -1).contiguous(),
+                                od.contiguous(), rd.contiguous())
+    q_ok = (cq > 0)[None]
+    _, row_ub, LB = _masked_frontier_bounds(lb, ub, cd > 0, q_ok)
+    UB = torch.amax(torch.where(q_ok, row_ub, -BIG), dim=-1)
+    return LB, UB
+
+
+def hausdorff_pair_exact(q_idx: DatasetIndex, d_idx: DatasetIndex):
+    """ExactHaus between two indexed datasets with leaf-level pruning.
+
+    The Eq. 4 bound matrices at the two leaf frontiers (one
+    ``ops.bound_matrices`` call) give the pruning masks: a query leaf
+    whose row upper bound is below the global lower bound ``glb`` cannot
+    set the maximum (row skip), and a corpus leaf whose lower bound
+    exceeds the row's upper bound cannot hold a nearest point (pair
+    skip).  The live pairs are then evaluated exactly, the squares added
+    in coordinate order and every root correctly rounded, as
+    ``ops.directed_hausdorff``.  Returns (H, pruned pair fraction), two
+    0-dim float32 tensors; H is at least ``glb``, which bounds the rows
+    skipped."""
+    oq, rq, cq = _level_arrays(q_idx, q_idx.depth)
+    od, rd, cd = _level_arrays(d_idx, d_idx.depth)
+    lb, ub = ops.bound_matrices(oq[None].contiguous(), rq[None].contiguous(),
+                                od[None].contiguous(), rd[None].contiguous())
+    d_ok, q_ok = cd > 0, cq > 0
+    lb, row_ub, glb = _masked_frontier_bounds(lb[0], ub[0], d_ok, q_ok)
+    row_live = q_ok & (row_ub >= glb)                 # rows that can set max
+    pair_live = row_live[:, None] & (lb <= row_ub[:, None]) & d_ok[None, :]
+
+    fq, fd, W = q_idx.leaf_size, d_idx.leaf_size, q_idx.points.shape[-1]
+    nlq, nld = pair_live.shape
+    qp = q_idx.points.reshape(nlq, 1, fq, 1, W)
+    dp = d_idx.points.reshape(1, nld, 1, fd, W)
+    dv = d_idx.valid.reshape(1, nld, 1, fd)
+    mins = []
+    # blocks of query leaves; min is exact, so the blocking changes no bit
+    for s in ref._pair_blocks(nlq, nld * fq * fd):
+        d2 = torch.where(dv, ref.unrolled_sq_dists(qp[s], dp), BIG)
+        m = torch.where(pair_live[s, :, None], torch.amin(d2, dim=-1), BIG)
+        mins.append(torch.amin(m, dim=1))             # (leaves, fq)
+    nn = ref.ieee_sqrt(torch.clamp_max(torch.cat(mins), BIG))
+    nn = torch.where(q_idx.valid.reshape(nlq, fq), nn, -BIG)
+    row_vals = torch.amax(nn, dim=1)
+    h = torch.amax(torch.where(row_live, row_vals, -BIG))
+    h = torch.maximum(h, glb)           # skipped rows are bounded by glb
+    pruned = 1.0 - pair_live.sum().to(torch.float32) / pair_live.numel()
+    return h, pruned
+
+
+def hausdorff_pair_approx(q_idx: DatasetIndex, d_idx: DatasetIndex,
+                          eps: float):
+    """ApproHaus between two datasets, within 2 eps of the exact value
+    (Lemma 1): center distances, in the cancelling form, at the first
+    level of each tree whose node radii are all below eps.  A 0-dim
+    float32 tensor."""
+    oq, _, cq = _level_arrays(q_idx, approx_level(q_idx, eps))
+    od, _, cd = _level_arrays(d_idx, approx_level(d_idx, eps))
+    cdm = geometry.pairwise_center_dist(oq, od)
+    cdm = torch.where((cd > 0)[None, :], cdm, BIG)
+    row = torch.amin(cdm, dim=1)
+    return torch.amax(torch.where(cq > 0, row, -BIG))

@@ -75,7 +75,7 @@ def _check_frontiers(name, oq, rq, od, rd, extra=None):
     nd = od.shape[1]
     if (rq.shape != (P, nq) or od.shape != (P, nd, W)
             or rd.shape != (P, nd) or not 1 <= W <= MAX_COORDS
-            or min(P, nq, nd) < 1 or P > MAX_GRID_YZ
+            or min(P, nq, nd) < 1
             or -(-nq // MATRIX_ROWS) > MAX_GRID_YZ):
         raise ValueError(f"{name}: shapes oq {tuple(oq.shape)}, "
                          f"rq {tuple(rq.shape)}, od {tuple(od.shape)}, "
@@ -87,17 +87,21 @@ def bound_matrices(oq, rq, od, rd, *, with_lb=True):
     """Eq. 4 (lb, ub), each (P, nq, nd) float32, for P pairs of node
     frontiers: oq (P, nq, W) / rq (P, nq) against od (P, nd, W) /
     rd (P, nd).  With ``with_lb=False`` the kernel writes ub only and lb is
-    None."""
+    None.  One launch for each ``MAX_GRID_YZ`` pairs (the grid's limit on
+    the pair axis)."""
     dev, P, nq, nd, W = _check_frontiers("bound_matrices", oq, rq, od, rd)
     f32 = torch.float32
     lb = torch.empty((P, nq, nd), dtype=f32, device=dev) if with_lb else None
     ub = torch.empty((P, nq, nd), dtype=f32, device=dev)
     fn = _build.kernel("bound_matrices")
     with torch.cuda.device(dev):
-        rc = fn(oq.data_ptr(), rq.data_ptr(), od.data_ptr(), rd.data_ptr(),
-                P, nq, nd, W, lb.data_ptr() if with_lb else None,
-                ub.data_ptr(), _stream(dev))
-    _build.launched("bound_matrices", rc)
+        for p0 in range(0, P, MAX_GRID_YZ):
+            s = slice(p0, p0 + MAX_GRID_YZ)
+            rc = fn(oq[s].data_ptr(), rq[s].data_ptr(), od[s].data_ptr(),
+                    rd[s].data_ptr(), min(MAX_GRID_YZ, P - p0), nq, nd, W,
+                    lb[s].data_ptr() if with_lb else None, ub[s].data_ptr(),
+                    _stream(dev))
+            _build.launched("bound_matrices", rc)
     return lb, ub
 
 
@@ -108,7 +112,7 @@ def bound_row_ub(oq, rq, od, rd, d_ok):
     stored."""
     dev, P, nq, nd, W = _check_frontiers(
         "bound_row_ub", oq, rq, od, rd, {"d_ok": (d_ok, torch.bool)})
-    if d_ok.shape != (P, nd):
+    if d_ok.shape != (P, nd) or P > MAX_GRID_YZ:
         raise ValueError(f"bound_row_ub: shapes d_ok {tuple(d_ok.shape)}, "
                          f"od {tuple(od.shape)}")
     out = torch.empty((P, nq), dtype=torch.float32, device=dev)

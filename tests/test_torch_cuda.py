@@ -873,3 +873,106 @@ def test_live_mesh_on_card(cuda_device, grid):
             assert (a is None) == (b is None)
             if a is not None:
                 assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("P,nq,nd", [(1, 256, 128), (1, 129, 256),
+                                     (10357, 8, 8), (700, 4, 16),
+                                     (2 * 65535 + 3, 1, 4)])
+def test_bound_matrices_pair_and_frontier_shapes(cuda_device, P, nq, nd):
+    """The shapes of ``hausdorff_pair_exact`` (P = 1, leaf frontiers) and
+    of ``frontier_bounds`` (one pair a slot, a level's nodes each side,
+    the query frontier repeated on the pair axis); past the grid's
+    65,535 pairs, one launch for each 65,535."""
+    rng = np.random.default_rng(P + nq + nd)
+    oq, rq, od, rd = _frontiers(rng, cuda_device, P, nq, nd, 2)
+    if P > 1:
+        oq, rq = oq[:1].expand(P, -1, -1).contiguous(), rq[:1].expand(
+            P, -1).contiguous()
+    ops.reset_launches()
+    got = bound_matrix.bound_matrices(oq, rq, od, rd)
+    launches = -(-P // bound_matrix.MAX_GRID_YZ)
+    assert ops.LAUNCHES["bound_matrices"] == launches
+    for g, w in zip(got, ref.bound_matrix(oq, rq, od, rd)):
+        assert _bits_equal(g, w)
+
+
+def _pair_repos(cuda_device):
+    """A small repository and a query tree on the CPU, and the same
+    indexes on the card."""
+    from repro_torch import bridge
+    from repro_torch.core.build import build_query_index, build_repository
+
+    rng = np.random.default_rng(13)
+    datasets = [(rng.uniform(-50, 50, 2)
+                 + rng.normal(size=(int(rng.integers(30, 300)), 2)) * 3
+                 ).astype(np.float32) for _ in range(40)]
+    cpu, _ = build_repository(datasets, leaf_capacity=16, theta=5,
+                              remove_outliers=False, device="cpu")
+    card = bridge.repository_to_torch(bridge.to_numpy(cpu), device=cuda_device)
+    q_cpu, sig = build_query_index(datasets[3][:200] + 1.5, theta=5,
+                                   space_lo=cpu.space_lo,
+                                   space_hi=cpu.space_hi, device="cpu")
+    q_card = bridge.index_to_torch(bridge.to_numpy(q_cpu), cuda_device)
+    return cpu, card, (q_cpu, sig), (q_card, sig.to(cuda_device))
+
+
+def test_pair_ops_on_card(cuda_device):
+    """``frontier_bounds`` is bitwise level l of ``bound_grid``, one
+    ``bound_matrices`` launch a call; ``hausdorff_pair_exact`` makes one
+    launch a call and, like the pair approximation and the GBO traversal
+    stats, equals the CPU's plain path."""
+    from repro_torch.core import search
+    from repro_torch.core.index import DatasetIndex
+
+    cpu, card, (q_cpu, sig_cpu), (q_card, sig_card) = _pair_repos(cuda_device)
+    batch = DatasetIndex(*[x[None] for x in q_card])
+    LBs, UBs = search._frontier_bound_all_levels(batch, card.ds_index, 3)
+    for level in range(4):
+        ops.reset_launches()
+        LB, UB = search.frontier_bounds(q_card, card.ds_index, level, level)
+        assert ops.LAUNCHES["bound_matrices"] == 1
+        assert _bits_equal(LB, LBs[level, 0]) and _bits_equal(UB, UBs[level, 0])
+    for j in (0, 3, 17, 39):
+        row = lambda r: DatasetIndex(*[x[j] for x in r.ds_index])  # noqa
+        ops.reset_launches()
+        h, pruned = search.hausdorff_pair_exact(q_card, row(card))
+        assert ops.LAUNCHES["bound_matrices"] == 1
+        wh, wp = search.hausdorff_pair_exact(q_cpu, row(cpu))
+        assert _bits_equal(h.cpu(), wh) and _bits_equal(pruned.cpu(), wp)
+        a = search.hausdorff_pair_approx(q_card, row(card), 2.0)
+        assert _bits_equal(a.cpu(), search.hausdorff_pair_approx(
+            q_cpu, row(cpu), 2.0))
+    ops.reset_launches()
+    stats = search.gbo_frontier_stats(card, sig_card, 5)
+    assert ops.LAUNCHES["set_intersect"] == 1
+    assert stats == search.gbo_frontier_stats(cpu, sig_cpu, 5)
+
+
+def test_topk_emd_on_card(cuda_device):
+    """Histograms bitwise the CPU's; the top-k values within 1e-4 of the
+    CPU's (the matrix products sum in another order), ids equal where
+    neighbouring values differ by more; full FP32 products."""
+    from repro_torch.core import emd
+
+    assert torch.get_float32_matmul_precision() == "highest"
+    cpu, card, _, _ = _pair_repos(cuda_device)
+    for i in (0, 7, 21):
+        for prefilter in (0, 16):
+            want = emd.topk_emd(cpu, cpu.ds_index.points[i],
+                                cpu.ds_index.valid[i], 10, prefilter=prefilter)
+            got = emd.topk_emd(card, card.ds_index.points[i],
+                               card.ds_index.valid[i], 10, prefilter=prefilter)
+            gv, gi = (x.cpu().numpy() for x in got)
+            wv, wi = (x.numpy() for x in want)
+            np.testing.assert_allclose(gv, wv, rtol=1e-4)
+            assert gi[0] == wi[0] == i
+            gaps = np.abs(np.diff(wv)) > 1e-4 * np.abs(wv[1:])
+            sure = np.concatenate([[True], gaps]) & np.concatenate([gaps,
+                                                                    [True]])
+            np.testing.assert_array_equal(gi[sure], wi[sure])
+    idx = card.ds_index
+    h = emd.cell_histogram(idx.points, idx.valid, card.space_lo,
+                           card.space_hi, 4)
+    want = emd.cell_histogram(cpu.ds_index.points, cpu.ds_index.valid,
+                              cpu.space_lo, cpu.space_hi, 4)
+    assert _bits_equal(h.cpu(), want)

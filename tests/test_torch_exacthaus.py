@@ -29,13 +29,13 @@ RTOL = 1e-6
 K = 6
 
 
-def assert_topk_close(got_v, got_i, want_v, want_i):
-    """vals to RTOL; ids exactly, except that positions whose values lie
-    within RTOL of each other form a group compared as a set (a group cut
+def assert_topk_close(got_v, got_i, want_v, want_i, rtol=RTOL):
+    """vals to rtol; ids exactly, except that positions whose values lie
+    within rtol of each other form a group compared as a set (a group cut
     by the k boundary is compared by size only)."""
     got_v, want_v = np.asarray(got_v), np.asarray(want_v)
     got_i, want_i = np.asarray(got_i), np.asarray(want_i)
-    np.testing.assert_allclose(got_v, want_v, rtol=RTOL)
+    np.testing.assert_allclose(got_v, want_v, rtol=rtol)
     if np.array_equal(got_i, want_i):
         return
     k = len(want_v)
@@ -43,7 +43,7 @@ def assert_topk_close(got_v, got_i, want_v, want_i):
     while start < k:
         end = start + 1
         while end < k and abs(want_v[end] - want_v[end - 1]) <= \
-                RTOL * abs(want_v[end]):
+                rtol * abs(want_v[end]):
             end += 1
         if end < k or start == 0:
             assert set(got_i[start:end]) == set(want_i[start:end]), (

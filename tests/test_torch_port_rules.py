@@ -10,6 +10,7 @@
 * ``chip_smoke.py`` fails without a card and never prints a result.
 """
 import ast
+import runpy
 import subprocess
 import sys
 import threading
@@ -29,8 +30,10 @@ from repro_torch.kernels import (_build, bound_matrix, hausdorff,
 from repro_torch.launch import serve_search
 
 REPO = Path(__file__).resolve().parents[1]
+quickstart_main = runpy.run_path(
+    str(REPO / "examples" / "quickstart_torch.py"))["main"]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -60,7 +63,11 @@ def test_join_and_serving_modules_are_scanned():
             "src/repro_torch/engine/merge.py",
             "src/repro_torch/engine/sharded.py",
             "src/repro_torch/engine/replicated.py",
-            "src/repro_torch/launch/mesh.py"} <= names
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/core/emd.py",
+            "src/repro_torch/data/tokens.py",
+            "src/repro_torch/data/discovery.py",
+            "examples/quickstart_torch.py"} <= names
 
 
 def test_cpu_tensors_take_the_plain_path():
@@ -170,6 +177,31 @@ def test_entry_points_need_a_card_unless_told_cpu():
     assert live.repo.device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         repo_mutate.build_frozen(live.slot_datasets(), live.geometry)
+
+
+def test_discovery_and_emd_need_a_card_unless_told_cpu():
+    """``curate`` builds on the card unless told the CPU; ``topk_emd`` runs
+    where its repository lies, so it reaches the CPU only through a
+    repository built there (and never moves one)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    from repro_torch.core import emd
+    from repro_torch.data import discovery
+
+    pts = [np.ones((20, 2), np.float32), np.zeros((30, 2), np.float32)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        discovery.curate(pts, pts[0], k=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart_main([])
+    kept, repo, _ = discovery.curate(pts, pts[0], k=2, device="cpu")
+    assert repo.device.type == "cpu" and kept[0] == 0
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        emd.topk_emd(bridge.repository_to_torch(bridge.to_numpy(repo)),
+                     torch.from_numpy(pts[0]), torch.ones(20, dtype=bool), 1)
+    vals, ids = emd.topk_emd(repo, torch.from_numpy(pts[0]),
+                             torch.ones(20, dtype=torch.bool), 2)
+    assert vals.device.type == ids.device.type == "cpu"
+    assert int(ids[0]) == 0
 
 
 def test_meshes_need_a_card_unless_given_devices():
