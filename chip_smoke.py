@@ -145,14 +145,39 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      to a float64 numpy Sinkhorn and the latency printed), and ``curate``
      on 64 trajectories, its selection equal to the port's CPU run.
      Every ``bound_matrices`` launch is kept and held bitwise against its
-     plain version.
+     plain version;
+ 17. routing and autotune, then the trajectory LM, after phases 1-16
+     have counted their launches at the default launch shapes:
+     ``QueryEngine.tune()`` on a fresh engine over the phase-2 repository
+     (each candidate's time, the shape installed per op and bucket, the
+     gate's rejections, which must be none, the epoch and the chunk);
+     every launch shape of ``bound_grid``, ``hausdorff_grid`` and
+     ``min_sq_dists`` bitwise against the plain version on phase 3's
+     operands, with its CUDA-graph time; the 32-query ExactHaus batch
+     under the tuned table and chunk bitwise phase 4's vals and ids, its
+     launches and latency beside phase 4's, and the share of its synced
+     wall clock that ``EngineStats.op_seconds`` booked; then
+     ``spadas_trajlm`` at its full config (12 x 768, ~116 M parameters,
+     weights from a seeded generator) serving 8 prompts of 64 tokens
+     (the repository's first trajectories tokenized at theta 6) and
+     generating 32 tokens with the bf16 cache and with the int8 cache:
+     prefill ms, decode ms a token, tokens per second, peak memory, and
+     one decode step under torch.profiler (device busy ms, device
+     operations, idle share of the step); gates: decode after an n-token
+     prefill against the forward logits at n (``LM_DECODE_BOUNDS``), which
+     must also fail on two planted faults (the cache zeroed, the step
+     taken at n - 1), the card's prefill logits against the port's CPU
+     run of the same weights and prompts (``LM_CPU_ATOL``), and the greedy
+     tokens counted against that run.
 
 The second-to-last line is the kernel table as JSON (each row's
 ``launches`` from the local path, ``sharded_launches`` per phase-14 path
 (per search) and per phase-15 path: ``live_mesh_4`` over the stream,
 ``live_growth_3`` and ``live_growth_2x2`` per batch, ``pair_launches``
 per phase-16 path; ``bound_matrices`` and ``set_intersect`` add
-``at_path_shapes``, their times at phase 16's shapes), the last line
+``at_path_shapes``, their times at phase 16's shapes; the three swept
+kernels add ``variants``, each launch shape's time at phase 3's shapes,
+and ``tuned``, the shape phase 17 installed), the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
@@ -206,6 +231,20 @@ LIVE_REQUESTS = 128
 LIVE_EVERY = 16
 # rows the graphed row build is held against the eager stages on
 ROW_CHECK = 64
+# the trajectory LM's serving run: prompts, their tokens, the tokens
+# generated, the Morton grid they are tokenized on, and the bound of the
+# card's prefill logits against the CPU run of the same weights (bf16
+# products whose float32 sums run in another order on the card: a bf16 ulp
+# here and there, carried through 12 layers, on logits of |x| < ~3)
+LM_BATCH = 8
+LM_PROMPT = 64
+LM_GEN = 32
+LM_THETA = 6
+LM_CPU_ATOL = 0.1
+# the bounds of decode after prefill against forward, per cache: the
+# reference's (tests/test_models_smoke.py::test_prefill_decode_consistency,
+# test_int8_kv_cache_decode_matches_fp)
+LM_DECODE_BOUNDS = {"bf16": (0.15, 0.05), "int8": (0.2, 0.1)}
 
 
 class SmokeFailure(RuntimeError):
@@ -462,19 +501,21 @@ def brute_topk(datasets, q, k):
 
 def device_profile(run):
     """Device time of one ``run()`` under torch.profiler: ms per kernel
-    name, device busy ms, and the host wall ms of the profiled run."""
+    name, device busy ms, the host wall ms of the profiled run, and the
+    number of device operations (kernels and copies) it ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = sync_time(run)
-    per_name = {}
+    per_name, n_ops = {}, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             per_name[e.name] = (per_name.get(e.name, 0.0)
                                 + e.time_range.elapsed_us() / 1e3)
-    return per_name, sum(per_name.values()), wall * 1e3
+            n_ops += 1
+    return per_name, sum(per_name.values()), wall * 1e3, n_ops
 
 
 def np_sq_dists(q, d):
@@ -952,7 +993,7 @@ def join_path(engine, items, reps, ops, set_intersect):
         "max_memory_allocated": peak,
         "launches_per_search": launches,
     }
-    per_name, busy_ms, wall_ms = device_profile(lambda: engine.search(items))
+    per_name, busy_ms, wall_ms, _ = device_profile(lambda: engine.search(items))
     if per_name:
         top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
         summary.update({
@@ -1563,8 +1604,9 @@ def check_kept(label, calls):
                 ok = torch.equal(set_intersect.intersect_counts(*a),
                                  ref.set_intersect_count(*a))
             elif name == "min_sq_dists_pairs":
+                # (q, ds, q_valid, ds_valid, launch shape)
                 ok = bits_equal(hausdorff.min_sq_dists_pairs(*a),
-                                ref.min_sq_dists_pairs(*a))
+                                ref.min_sq_dists_pairs(*a[:4]))
             else:
                 gd, gi = nn_distance.nn_distance_batched(*a)
                 wd, wi = ref.nn_distance_batched(*a)
@@ -1610,7 +1652,7 @@ def mesh_path(label, engine, items, want, reps, ops, local):
                "max_memory_allocated": peak,
                "local_max_memory_allocated": local["peak"],
                "launches_per_search": launches}
-    per_name, busy_ms, wall_ms = device_profile(lambda: engine.search(items))
+    per_name, busy_ms, wall_ms, _ = device_profile(lambda: engine.search(items))
     if per_name:
         summary.update({"device_busy_ms": busy_ms,
                         "local_device_busy_ms": local["busy_ms"],
@@ -2497,6 +2539,307 @@ def pair_ops_phase(repo, q_batch, res, q_sigs, gbo_counts, gbo_occ, r_gbo,
     log(f"pair ops phase: {time.perf_counter() - t0:.1f} s")
 
 
+def swept_inputs(repo, q_batch, k, search, hausdorff, ref):
+    """The operands of the three swept kernels at the main path's shapes:
+    ``bound_grid`` on phases 0/1's trees (levels 0..3), ``hausdorff_grid``
+    on the first phase-2 chunk (the first 32 ascending-LB candidates of
+    each query, every lane live, on the compacted query rows and the
+    resident corpus; ``grid_in`` is the plain grid's form of it), and
+    ``min_sq_dists`` on the oracle's first chunk (query 0 against its
+    first 32 candidates) and on one pair of it."""
+    max_level = min(q_batch.depth, repo.ds_index.depth, 3)
+    n_nodes = (1 << (max_level + 1)) - 1
+    levels = tuple(((1 << l) - 1, (1 << (l + 1)) - 1)
+                   for l in range(max_level + 1))
+    bg_in = (q_batch.centers[:, :n_nodes].contiguous(),
+             q_batch.radii[:, :n_nodes].contiguous(),
+             (q_batch.counts[:, :n_nodes] > 0).contiguous(),
+             repo.ds_index.centers[:, :n_nodes].contiguous(),
+             repo.ds_index.radii[:, :n_nodes].contiguous(),
+             (repo.ds_index.counts[:, :n_nodes] > 0).contiguous())
+    LB, _, cand, _, _ = search._hausdorff_bound_phases(repo, q_batch, k, 3)
+    order = torch.sort(torch.where(cand, LB, ref.BIG), dim=-1,
+                       stable=True).indices
+    ids = order[:, :32].contiguous()
+    pts, pv = repo.ds_index.points, repo.ds_index.valid
+    q_c, n_q = search.phase2_query_rows(q_batch)
+    live = torch.ones(ids.shape, dtype=torch.bool, device=pts.device)
+    qp, qv = q_batch.points, q_batch.valid
+    ids0 = ids[0][cand[0, ids[0]]]
+    ds0, dsv0 = pts[ids0], pv[ids0]
+    return {
+        "bg_in": bg_in, "levels": levels,
+        "lanes_in": (q_c, n_q, pts, pv, hausdorff.valid_extent(pv), ids,
+                     live),
+        "grid_in": (qp, pts[ids], qv, pv[ids]),
+        "nvalid": pv.sum(dim=-1, dtype=torch.int64),
+        "msd_in": (qp[0], ds0, qv[0], dsv0),
+        "one": (qp[0], ds0[:1], qv[0], dsv0[:1]),
+    }
+
+
+def variant_rows(rows, sw, autotune, hausdorff, bound_matrix, ops, ref):
+    """Every launch shape of the three swept kernels on phase 3's operands
+    (the main path's shapes): each bitwise against the plain version, its
+    CUDA-graph time beside the row's bound.  Adds ``variants`` and
+    ``tuned`` (the shape the tuner installed for that op and shape) to the
+    kernel rows."""
+    bg_in, levels = sw["bg_in"], sw["levels"]
+    lanes_in, grid_in, msd_in = sw["lanes_in"], sw["grid_in"], sw["msd_in"]
+    plain = {
+        "bound_grid": torch.stack(ref.frontier_bound_levels(*bg_in, levels)),
+        "hausdorff_grid": ops.directed_hausdorff_grid_plain(*grid_in),
+        "min_sq_dists": ref.min_sq_dists_pairs(*msd_in),
+    }
+    launch = {
+        "bound_grid": lambda cfg: torch.stack(bound_matrix.bound_grid(
+            *bg_in, levels=levels, config=cfg)),
+        "hausdorff_grid": lambda cfg: hausdorff.hausdorff_lanes(
+            *lanes_in, config=cfg),
+        "min_sq_dists": lambda cfg: hausdorff.min_sq_dists_pairs(
+            *msd_in, config=cfg),
+    }
+    # the shapes the kernels were keyed on at these operands
+    keys = {"bound_grid": (bg_in[0].shape[0], bg_in[3].shape[0]),
+            "hausdorff_grid": (lanes_in[2].shape[1],) * 2,
+            "min_sq_dists": (msd_in[0].shape[0], msd_in[1].shape[1])}
+    dev = bg_in[0].device
+    out = {}
+    for name in ("bound_grid", "hausdorff_grid", "min_sq_dists"):
+        row = next(r for r in rows if r["name"] == name)
+        variants = []
+        for i, cfg in enumerate(autotune.VARIANTS[name]):
+            got = launch[name](cfg)
+            torch.cuda.synchronize()
+            check(bits_equal(got, plain[name]), f"{name}: variant {i} "
+                  f"{cfg.fields()} differs from its plain version")
+            ms = graph_ms(lambda cfg=cfg: launch[name](cfg), 10)
+            variants.append({"variant": i, **cfg.fields(), "ms": ms,
+                             "bitwise": True,
+                             "share_of_bound": row["bound_ms"] / ms})
+        tuned = autotune.lookup(name, keys[name], dev)
+        row["variants"] = variants
+        row["tuned"] = {"variant": autotune.variant(name, tuned),
+                        **tuned.fields()}
+        out[name] = {"tuned": row["tuned"], "variants": variants}
+    log("launch-shape variants at the path's shapes: " + json.dumps(out))
+    return out
+
+
+def tune_phase(repo, q_sets, res, lat, rows, k, reps):
+    """Phase 17a: ``QueryEngine.tune()`` on the T-Drive engine, every
+    variant of the swept kernels gated at the path's shapes, and the
+    32-query ExactHaus batch under the tuned table and chunk held bitwise
+    to phase 4's."""
+    from repro_torch.core import search
+    from repro_torch.engine import Query, QueryEngine
+    from repro_torch.kernels import autotune, bound_matrix, hausdorff, ops, ref
+
+    engine = QueryEngine(repo, result_cache_size=0)
+    e0 = autotune.epoch()
+    report, tune_s = sync_time(engine.tune)
+    summary = {"tune_s": tune_s, "epoch_before": e0,
+               "epoch": autotune.epoch(), "chunk": report["chunk"],
+               "device": report["device"]}
+    for name in ("min_sq_dists", "hausdorff_grid"):
+        summary[name] = report[name]
+    summary["bound_grid"] = report["bound_grid"]
+    log("tune: " + json.dumps(summary))
+    for row in [report["min_sq_dists"], report["hausdorff_grid"],
+                *report["bound_grid"].values()]:
+        check(not row["plain_only"] and not row["cached"],
+              f"tune: {row['key']} was not swept on the card")
+        check(row["candidates_rejected_bitwise"] == 0,
+              f"tune: {row['key']}: a launch shape differs bitwise from the "
+              f"default at the probe")
+        check(len(row["timings_s"]) == len(row["candidates"]) == 4,
+              f"tune: {row['key']}: not every variant was timed")
+    check(engine.default_chunk in report["chunk"]["candidates"],
+          "tune: the chunk is not a candidate")
+
+    q_batch = engine.build_queries(q_sets)
+    sw = swept_inputs(repo, q_batch, k, search, hausdorff, ref)
+    variants = variant_rows(rows, sw, autotune, hausdorff, bound_matrix, ops,
+                            ref)
+    del sw
+
+    # the main path under the tuned table and chunk
+    queries = [Query(op="topk_hausdorff", q=q, k=k, refine_levels=3)
+               for q in q_sets]
+    engine.search(queries)                                 # warm-up
+    ops.reset_launches()
+    before = engine.stats.op_seconds.get("topk_hausdorff", 0.0)
+    res_t, first_s = sync_time(lambda: engine.search(queries))
+    booked = engine.stats.op_seconds["topk_hausdorff"] - before
+    launches = dict(ops.LAUNCHES)
+    times = [first_s]
+    for _ in range(reps - 1):
+        times.append(sync_time(lambda: engine.search(queries))[1])
+    for i, (a, b) in enumerate(zip(res_t, res)):
+        check(np.array_equal(a.vals.view(np.uint32), b.vals.view(np.uint32))
+              and np.array_equal(a.ids, b.ids),
+              f"tuned ExactHaus: query {i} differs from phase 4's")
+    check(launches["hausdorff_grid"] > 0 and launches["bound_grid"] == 1,
+          "tuned ExactHaus: the path kernels were not launched")
+    tuned = {"chunk": engine.default_chunk,
+             "batch_latency_s": float(np.mean(times)),
+             "batch_latency_all_s": times,
+             "phase4_batch_latency_s": lat,
+             "launches_per_search": {n: launches[n] for n in
+                                     ("bound_grid", "hausdorff_grid")},
+             # the planner's window around the group against the synced
+             # wall clock of the same call: near 1 when the window holds
+             # the device work (the group reads its counters inside it)
+             "op_seconds_share_of_synced_wall": booked / first_s,
+             "bitwise_phase4": True}
+    log("tuned ExactHaus: " + json.dumps(tuned))
+    return {"tune": summary, "variants": variants, "exact": tuned}
+
+
+def decode_controls(model, tp, kv, want, atol, rtol):
+    """Faults planted in the decode after an n-token prefill, each of
+    which the decode-vs-forward gate must catch: the cache zeroed, and the
+    step taken at position n - 1 (it overwrites the prompt's last K/V and
+    shifts the rotary position by one).  Returns each fault's largest
+    error against the forward logits at position n."""
+    n = tp.shape[1] - 1
+    out = {}
+    for fault in ("zeroed_cache", "cache_len_minus_1"):
+        _, caches, _ = model.prefill(tp[:, :-1], n + 5, kv)
+        at = n
+        if fault == "zeroed_cache":
+            for t in caches[0].values():
+                t.zero_()
+        else:
+            at = n - 1
+        lg, _ = model.decode_step(tp[:, -1:], caches, at)
+        err = max_abs(lg[:, 0], want)
+        check(not torch.allclose(lg[:, 0], want, atol=atol, rtol=rtol),
+              f"LM {kv}: the decode gate passes a planted fault ({fault}, "
+              f"max abs {err}; atol {atol}, rtol {rtol})")
+        out[fault] = err
+    return out
+
+
+def decode_profile(model, tp, kv, decode_ms):
+    """One greedy decode step (``decode_step`` and its argmax, as
+    ``serve.generate`` takes it) under torch.profiler, after a prefill of
+    the prompts and one warm step: the device's busy ms, its device
+    operations, and its idle share of the unprofiled step time
+    ``decode_ms`` (the profiler's own cost inflates its wall)."""
+    n = tp.shape[1]
+    logits, caches, _ = model.prefill(tp, n + 2, kv)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    lg, _ = model.decode_step(tok, caches, n)
+    tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+
+    def step():
+        out, _ = model.decode_step(tok, caches, n + 1)
+        return torch.argmax(out[:, -1], dim=-1)
+
+    per_name, busy_ms, wall_ms, n_ops = device_profile(step)
+    top = sorted(per_name.items(), key=lambda kv_: -kv_[1])[:5]
+    return {"device_busy_ms": busy_ms, "device_ops": n_ops,
+            "profiled_wall_ms": wall_ms, "step_ms": decode_ms,
+            "idle_share_of_step": 1.0 - busy_ms / decode_ms,
+            "top_ops_ms": dict(top)}
+
+
+def lm_phase(repo, datasets, card_line):
+    """Phase 17b: the trajectory LM ``spadas_trajlm`` at its full config
+    (12 x 768, 12 heads, d_ff 3072, vocab 4160, ~116 M parameters), weights
+    from a seeded generator, serving 8 prompts of 64 tokens (the smoke's
+    trajectories tokenized at theta 6) and generating 32 tokens with the
+    bf16 cache and with the int8 cache.  Gates: decode after an n-token
+    prefill against the forward logits at position n (the reference's
+    bounds), the card's prefill logits against the port's CPU run of the
+    same weights and prompts, and the greedy tokens counted against it."""
+    from repro_torch import configs
+    from repro_torch.data.tokens import tokenize_trajectory
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LanguageModel
+
+    cfg = configs.get("spadas_trajlm")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size)
+          == (12, 768, 12, 3072, 4160), "spadas_trajlm: not the full config")
+    lo, hi = repo.space_lo, repo.space_hi
+    docs = []
+    for t in datasets:
+        d = tokenize_trajectory(t, lo, hi, LM_THETA)
+        if len(d) >= LM_PROMPT:
+            docs.append(d[:LM_PROMPT])
+        if len(docs) == LM_BATCH:
+            break
+    prompts = np.stack(docs).astype(np.int64)
+    check(prompts.shape == (LM_BATCH, LM_PROMPT)
+          and prompts.max() < cfg.vocab_size, "LM prompts")
+    dev = repo.space_lo.device
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = sync_time(lambda: LanguageModel(cfg, device=dev, seed=0))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_count(), "LM parameter count")
+    cpu_model = LanguageModel(cfg, device="cpu", seed=0)
+    tp = torch.as_tensor(prompts, device=dev)
+    out = {"config": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": n_params,
+           "prompts": list(prompts.shape), "gen": LM_GEN,
+           "init_s": init_s, "card": card_line}
+    for kv, (atol, rtol) in LM_DECODE_BOUNDS.items():
+        serve.generate(model, prompts[:, :8], 2, kv)            # warm-up
+        pre = [sync_time(lambda: model.prefill(tp, LM_PROMPT + LM_GEN,
+                                               kv))[1]
+               for _ in range(3)]
+        gens = [sync_time(lambda: serve.generate(model, prompts, LM_GEN,
+                                                 kv)) for _ in range(3)]
+        gen = gens[0][0]
+        total_s = float(np.mean([s for _, s in gens]))
+        prefill_ms = float(np.mean(pre)) * 1e3
+        decode_ms = (total_s * 1e3 - prefill_ms) / (LM_GEN - 1)
+        for g, _ in gens[1:]:
+            check(torch.equal(g.tokens, gen.tokens), f"LM {kv}: repeated "
+                  f"generation differs")
+        # decode after an n-token prefill == forward at position n
+        full = model(tp)
+        _, caches, n = model.prefill(tp[:, :-1], LM_PROMPT + 4, kv)
+        lg, _ = model.decode_step(tp[:, -1:], caches, n)
+        cons = max_abs(lg[:, 0], full[:, -1])
+        check(torch.allclose(lg[:, 0], full[:, -1], atol=atol, rtol=rtol),
+              f"LM {kv}: decode after prefill differs from forward by "
+              f"{cons} (atol {atol}, rtol {rtol})")
+        controls = decode_controls(model, tp, kv, full[:, -1], atol, rtol)
+        step = decode_profile(model, tp, kv, decode_ms)
+        # the port's CPU run of the same weights and prompts
+        cpu_gen, cpu_s = sync_time(lambda: serve.generate(
+            cpu_model, prompts, LM_GEN, kv))
+        pre_err = max_abs(gen.logits[0].cpu(), cpu_gen.logits[0])
+        check(pre_err <= LM_CPU_ATOL, f"LM {kv}: the card's prefill logits "
+              f"differ from the CPU run's by {pre_err} (atol {LM_CPU_ATOL})")
+        same = (gen.tokens.cpu() == cpu_gen.tokens).numpy()
+        lead = [int(np.argmin(np.append(r, False))) for r in same]
+        out[kv] = {
+            "prefill_ms": prefill_ms, "prefill_all_s": pre,
+            "decode_ms_per_token": decode_ms,
+            "decode_tokens_per_s": LM_BATCH / decode_ms * 1e3,
+            "tokens_per_s": LM_BATCH * LM_GEN / total_s,
+            "generate_all_s": [s for _, s in gens],
+            "prefill_decode_max_abs": cons,
+            "decode_gate_controls": controls,
+            "decode_step_profile": step,
+            "prefill_logits_vs_cpu_max_abs": pre_err,
+            "logit_scale": float(gen.logits[0].abs().max()),
+            "greedy_tokens_equal_cpu": int(same.sum()),
+            "greedy_tokens": int(same.size),
+            "sequences_equal_cpu": int(same.all(axis=1).sum()),
+            "leading_tokens_equal_cpu": lead,
+            "cpu_generate_s": cpu_s}
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["lm_peak_above_resident_bytes"] = out["peak_memory_bytes"] - base
+    log("lm serve: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -2558,16 +2901,8 @@ def main() -> int:
     # ---- 3. kernels vs plain versions, at the main path's shapes -------
     q_batch = engine.build_queries(q_sets)
     rows = []
-    max_level = min(q_batch.depth, repo.ds_index.depth, 3)
-    n_nodes = (1 << (max_level + 1)) - 1
-    levels = tuple(((1 << l) - 1, (1 << (l + 1)) - 1)
-                   for l in range(max_level + 1))
-    bg_in = (q_batch.centers[:, :n_nodes].contiguous(),
-             q_batch.radii[:, :n_nodes].contiguous(),
-             (q_batch.counts[:, :n_nodes] > 0).contiguous(),
-             repo.ds_index.centers[:, :n_nodes].contiguous(),
-             repo.ds_index.radii[:, :n_nodes].contiguous(),
-             (repo.ds_index.counts[:, :n_nodes] > 0).contiguous())
+    sw = swept_inputs(repo, q_batch, k, search, hausdorff, ref)
+    bg_in, levels = sw["bg_in"], sw["levels"]
     got = bound_matrix.bound_grid(*bg_in, levels=levels)
     want = ref.frontier_bound_levels(*bg_in, levels)
     torch.cuda.synchronize()
@@ -2575,7 +2910,7 @@ def main() -> int:
     row = kernel_row(
         "bound_grid", "src/repro_torch/csrc/bound_grid.cu",
         "src/repro/kernels/bound_matrix.py:84",
-        {"B": B, "S": S, "N": n_nodes, "W": W, "L": len(levels)},
+        {"B": B, "S": S, "N": bg_in[0].shape[1], "W": W, "L": len(levels)},
         torch.stack(got), torch.stack(want),
         kernel_times(lambda: bound_matrix.bound_grid(*bg_in, levels=levels),
                      20),
@@ -2584,45 +2919,33 @@ def main() -> int:
     rows.append(row)
     log_row(row)
 
-    # a real phase-2 chunk: the first 32 ascending-LB candidates per query,
-    # every lane live, on the path's compacted query rows and the resident
-    # corpus
-    LB, tau, cand, _, _ = search._hausdorff_bound_phases(repo, q_batch, k, 3)
-    order = torch.sort(torch.where(cand, LB, ref.BIG), dim=-1,
-                       stable=True).indices
-    ids = order[:, :32].contiguous()
-    pts, pv = repo.ds_index.points, repo.ds_index.valid
-    q_c, n_q = search.phase2_query_rows(q_batch)
-    extent = hausdorff.valid_extent(pv)
-    live = torch.ones(ids.shape, dtype=torch.bool, device=dev)
-    lanes_in = (q_c, n_q, pts, pv, extent, ids, live)
+    # a real phase-2 chunk, every lane live, on the path's compacted query
+    # rows and the resident corpus
+    lanes_in, grid_in = sw["lanes_in"], sw["grid_in"]
     got = hausdorff.hausdorff_lanes(*lanes_in)
-    ds, dsv = pts[ids], pv[ids]
-    qp, qv = q_batch.points, q_batch.valid
-    want = ops.directed_hausdorff_grid_plain(qp, ds, qv, dsv)
+    want = ops.directed_hausdorff_grid_plain(*grid_in)
     torch.cuda.synchronize()
-    nvalid = pv.sum(dim=-1, dtype=torch.int64)
+    nvalid = sw["nvalid"]
+    q_c, ids, pts = lanes_in[0], lanes_in[5], lanes_in[2]
     row = kernel_row(
         "hausdorff_grid", "src/repro_torch/csrc/hausdorff_grid.cu",
         "src/repro/kernels/hausdorff.py:96",
-        {"B": ids.shape[0], "C": ids.shape[1], "nq": qp.shape[1],
+        {"B": ids.shape[0], "C": ids.shape[1], "nq": grid_in[0].shape[1],
          "nqp": q_c.shape[1], "nd": pts.shape[1], "W": pts.shape[2]},
         got, want,
         kernel_times(lambda: hausdorff.hausdorff_lanes(*lanes_in), 10),
-        event_ms(lambda: ops.directed_hausdorff_grid_plain(qp, ds, qv, dsv),
-                 2, 1),
+        event_ms(lambda: ops.directed_hausdorff_grid_plain(*grid_in), 2, 1),
         *lanes_work(lanes_in, nvalid))
     rows.append(row)
     log_row(row)
 
     # the oracle's first chunk: query 0 against its first 32 ascending-LB
     # candidates, gathered from the corpus as topk_hausdorff_host does
-    ids0 = ids[0][cand[0, ids[0]]]
-    q0, qv0, ds0, dsv0 = qp[0], qv[0], pts[ids0], pv[ids0]
-    msd_in = (q0, ds0, qv0, dsv0)
+    msd_in, one = sw["msd_in"], sw["one"]
     got = hausdorff.min_sq_dists_pairs(*msd_in)
     want = ref.min_sq_dists_pairs(*msd_in)
     torch.cuda.synchronize()
+    q0, ds0 = msd_in[0], msd_in[1]
     row = kernel_row(
         "min_sq_dists", "src/repro_torch/csrc/min_sq_dists.cu",
         "src/repro/kernels/hausdorff.py:34",
@@ -2632,7 +2955,6 @@ def main() -> int:
         event_ms(lambda: ref.min_sq_dists_pairs(*msd_in), 3, 1),
         *pairs_work(msd_in, [got], roots=False))
     # one pair of the chunk, as the single-pair op launches it
-    one = (q0, ds0[:1], qv0, dsv0[:1])
     row["p1_ms"] = graph_ms(lambda: hausdorff.min_sq_dists_pairs(*one), 50)
     row["p1_bound_ms"] = least_ms(*pairs_work(one, [got[:1]], roots=False))[0]
     rows.append(row)
@@ -2640,7 +2962,7 @@ def main() -> int:
     for r in rows:
         check(r["bitwise"], f"{r['name']}: kernel differs from its plain "
               f"version (max abs diff {r['max_abs_diff']})")
-    del got, want, ds, dsv, LB, cand, order, lanes_in, msd_in, one
+    del got, want, sw, lanes_in, grid_in, msd_in, one, q_c, ids, ds0
 
     # ---- 4. the main path: QueryEngine.search ---------------------------
     # warm-up; it keeps the operands of every hausdorff_grid launch
@@ -2686,7 +3008,7 @@ def main() -> int:
         check(launches[name] > 0, f"{name} was not launched by search()")
 
     # one more pass, under the profiler: where the device time goes
-    per_name, busy_ms, wall_ms = device_profile(lambda: engine.search(queries))
+    per_name, busy_ms, wall_ms, _ = device_profile(lambda: engine.search(queries))
     local = {"exact": {"results": res, "latency_s": lat,
                        "peak": main["max_memory_allocated"],
                        "busy_ms": busy_ms if per_name else None}}
@@ -2781,7 +3103,7 @@ def main() -> int:
               (bound_matrix, "bound_row_ub")])
     log("dataset/point path: " + json.dumps(summary))
     # one more pass, under the profiler: where the device time goes
-    per_name, busy_ms, wall_ms = device_profile(lambda: engine.search(items))
+    per_name, busy_ms, wall_ms, _ = device_profile(lambda: engine.search(items))
     local["mixed"] = {"items": items, "results": res2,
                       "latency_s": summary["batch_latency_s"],
                       "peak": summary["max_memory_allocated"],
@@ -2886,6 +3208,12 @@ def main() -> int:
     pair_ops_phase(repo, q_batch, res, q_sigs, gbo_counts, gbo_occ,
                    res2[2 * N_QUERIES:3 * N_QUERIES], eps, q_sets, datasets,
                    rows)
+
+    # ---- 17. routing and autotune, then the trajectory LM --------------
+    t17 = time.perf_counter()
+    tune_phase(repo, q_sets, res, lat, rows, k, reps)
+    lm_phase(repo, datasets, smi[0])
+    log(f"phase 17: {time.perf_counter() - t17:.1f} s")
     rows += j_rows
     log(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))

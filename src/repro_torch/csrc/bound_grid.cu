@@ -51,9 +51,16 @@ namespace {
 
 constexpr float kBig = 3.4e38f;
 constexpr int kMaxLevels = 32;
-constexpr int kSlots = 128;     // threads per block, one slot each
-constexpr int kQueries = 4;     // queries per block
-constexpr int kReg = 8;         // corpus nodes held in registers at once
+
+// The launch shapes this file instantiates: (variant, slots a block = its
+// threads, queries a block, corpus nodes held in registers at once).
+// Variant 0, 128 x 4 x 8, is the default; the others are the tuner's
+// candidates.  None holds more slots a block than the default, so none
+// needs much more shared memory (the slots' nodes are most of it).
+// repro_torch/kernels/autotune.py VARIANTS["bound_grid"] lists the same
+// shapes in the same order.
+#define BOUND_GRID_VARIANTS(X) \
+  X(0, 128, 4, 8) X(1, 64, 4, 8) X(2, 128, 2, 8) X(3, 128, 8, 8)
 
 struct Levels {
   int n;
@@ -61,8 +68,9 @@ struct Levels {
   int stop[kMaxLevels];
 };
 
-// up to kReg corpus nodes [j0, j0 + n) of one slot, in registers
-template <int W>
+// up to kReg corpus nodes [j0, j0 + n) of one slot, in registers; shared
+// memory holds kSlots slots
+template <int W, int kSlots, int kReg>
 struct Nodes {
   float x[kReg][W];
   float rd[kReg];
@@ -125,7 +133,7 @@ struct Nodes {
   }
 };
 
-template <int W>
+template <int W, int kSlots, int kQueries, int kReg>
 __global__ void __launch_bounds__(kSlots)
 bound_grid_kernel(const float* __restrict__ oq, const float* __restrict__ rq,
                   const uint8_t* __restrict__ q_ok,
@@ -168,7 +176,7 @@ bound_grid_kernel(const float* __restrict__ oq, const float* __restrict__ rq,
   if (t >= ns) return;
   const int s = s0 + t;
 
-  Nodes<W> nodes;
+  Nodes<W, kSlots, kReg> nodes;
   for (int l = 0; l < levels.n; ++l) {
     const int a = levels.start[l];
     const int e = levels.stop[l];
@@ -220,7 +228,7 @@ bound_grid_kernel(const float* __restrict__ oq, const float* __restrict__ rq,
   }
 }
 
-template <int W>
+template <int W, int kSlots, int kQueries, int kReg>
 int launch(const float* oq, const float* rq, const uint8_t* q_ok,
            const float* od, const float* rd, const uint8_t* d_ok,
            const Levels& levels, int B, int S, int N, float* LB, float* UB,
@@ -228,31 +236,48 @@ int launch(const float* oq, const float* rq, const uint8_t* q_ok,
   const size_t shmem = (size_t)N * (W + 1) * kSlots * sizeof(float)
                        + (size_t)kQueries * N * (W + 1) * sizeof(float)
                        + (size_t)N * kSlots + (size_t)kQueries * N;
+  auto kernel = bound_grid_kernel<W, kSlots, kQueries, kReg>;
   if (shmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bound_grid_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((S + kSlots - 1) / kSlots, (B + kQueries - 1) / kQueries);
-  bound_grid_kernel<W><<<grid, kSlots, shmem, stream>>>(
-      oq, rq, q_ok, od, rd, d_ok, levels, B, S, N, LB, UB);
+  kernel<<<grid, kSlots, shmem, stream>>>(oq, rq, q_ok, od, rd, d_ok, levels,
+                                          B, S, N, LB, UB);
   return (int)cudaGetLastError();
+}
+
+template <int kSlots, int kQueries, int kReg>
+int launch_shape(const float* oq, const float* rq, const uint8_t* q_ok,
+                 const float* od, const float* rd, const uint8_t* d_ok,
+                 const Levels& levels, int B, int S, int N, int W, float* LB,
+                 float* UB, cudaStream_t stream) {
+  if ((B + kQueries - 1) / kQueries > 65535)
+    return (int)cudaErrorInvalidValue;
+  switch (W) {
+#define CASE(w) \
+    case w: return launch<w, kSlots, kQueries, kReg>( \
+        oq, rq, q_ok, od, rd, d_ok, levels, B, S, N, LB, UB, stream);
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // oq (B, N, W), rq / q_ok (B, N), od (S, N, W), rd / d_ok (S, N), all
-// contiguous; level slices given as two host arrays of L ints; W in 1..8.
-// Writes LB, UB (L, B, S).  Returns cudaGetLastError() after the launch.
+// contiguous; level slices given as two host arrays of L ints; W in 1..8;
+// `variant` indexes BOUND_GRID_VARIANTS.  Writes LB, UB (L, B, S).
+// Returns cudaGetLastError() after the launch.
 extern "C" int bound_grid_launch(const float* oq, const float* rq,
                                  const uint8_t* q_ok, const float* od,
                                  const float* rd, const uint8_t* d_ok,
                                  const int* starts, const int* stops, int L,
-                                 int B, int S, int N, int W, float* LB,
-                                 float* UB, void* stream) {
-  if (L < 1 || L > kMaxLevels || B < 1 || S < 1 || N < 1 ||
-      (B + kQueries - 1) / kQueries > 65535)
+                                 int B, int S, int N, int W, int variant,
+                                 float* LB, float* UB, void* stream) {
+  if (L < 1 || L > kMaxLevels || B < 1 || S < 1 || N < 1)
     return (int)cudaErrorInvalidValue;
   Levels levels;
   levels.n = L;
@@ -261,12 +286,12 @@ extern "C" int bound_grid_launch(const float* oq, const float* rq,
     levels.stop[l] = stops[l];
   }
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-#define CASE(w) \
-    case w: return launch<w>(oq, rq, q_ok, od, rd, d_ok, levels, B, S, N, \
-                             LB, UB, s);
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-#undef CASE
+  switch (variant) {
+#define VARIANT(v, slots, queries, reg) \
+    case v: return launch_shape<slots, queries, reg>( \
+        oq, rq, q_ok, od, rd, d_ok, levels, B, S, N, W, LB, UB, s);
+    BOUND_GRID_VARIANTS(VARIANT)
+#undef VARIANT
     default: return (int)cudaErrorInvalidValue;
   }
 }

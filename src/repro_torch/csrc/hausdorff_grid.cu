@@ -58,17 +58,26 @@
 namespace {
 
 constexpr float kBig = 3.4e38f;
-// 4 warps of 2 rows a thread: of 1-4 warps x 1-8 rows, the shape that
-// took least time per search on an H100 (more rows a thread left the
-// card's tail emptier, fewer fed too little arithmetic per shared load)
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 2;                          // query rows per thread
-// rows per block; ROWS_PER_BLOCK in repro_torch/kernels/hausdorff.py
-constexpr int kRowsPerBlock = kThreads * kRows;   // 256
 constexpr int kPer = 4;                           // points per thread per tile
 constexpr int kSeg = kPer * 32;                   // one warp's tile segment
-constexpr int kTile = kWarps * kSeg;              // 512 points per tile
+
+// The launch shapes this file instantiates: (variant, warps a block, query
+// rows a thread).  Variant 0, 4 warps of 2 rows, is the default: of 1-4
+// warps x 1-8 rows it took least time per search on an H100 (more rows a
+// thread left the card's tail emptier, fewer fed too little arithmetic per
+// shared load).  The others are the tuner's candidates.
+// repro_torch/kernels/autotune.py VARIANTS["hausdorff_grid"] lists the same
+// shapes in the same order, and ROWS_PER_BLOCK in
+// repro_torch/kernels/hausdorff.py is the default's rows per block.
+#define HAUSDORFF_GRID_VARIANTS(X) X(0, 4, 2) X(1, 2, 2) X(2, 4, 1) X(3, 4, 4)
+
+// one launch shape: threads, rows and points a block covers
+template <int kWarps, int kRows>
+struct Shape {
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kRowsPerBlock = kThreads * kRows;  // 256 by default
+  static constexpr int kTile = kWarps * kSeg;   // points a tile, 512 by default
+};
 
 __global__ void hausdorff_lanes_init_kernel(const uint8_t* __restrict__ live,
                                             int n, float* __restrict__ H) {
@@ -76,8 +85,8 @@ __global__ void hausdorff_lanes_init_kernel(const uint8_t* __restrict__ live,
   if (i < n) H[i] = live[i] ? -kBig : kBig;
 }
 
-template <int W>
-__global__ void __launch_bounds__(kThreads)
+template <int W, int kWarps, int kRows>
+__global__ void __launch_bounds__(kWarps * 32)
 hausdorff_lanes_kernel(const float* __restrict__ q_c,
                        const int* __restrict__ n_q,
                        const float* __restrict__ pts,
@@ -86,6 +95,9 @@ hausdorff_lanes_kernel(const float* __restrict__ q_c,
                        const int64_t* __restrict__ ids,
                        const uint8_t* __restrict__ live, int C, int nqp,
                        int S, int nd, float* __restrict__ H) {
+  using Sh = Shape<kWarps, kRows>;
+  constexpr int kRowsPerBlock = Sh::kRowsPerBlock;
+  constexpr int kTile = Sh::kTile;
   // two buffers of compacted points; each warp fills its own segment
   __shared__ float s_d[2][kTile * W];
   __shared__ int s_n[2][kWarps];
@@ -203,45 +215,66 @@ hausdorff_lanes_kernel(const float* __restrict__ q_c,
   }
 }
 
-template <int W>
+template <int W, int kWarps, int kRows>
 int launch(const float* q_c, const int* n_q, const float* pts,
            const uint8_t* pts_valid, const int* extent, const int64_t* ids,
            const uint8_t* live, int B, int C, int nqp, int S, int nd,
            float* H, cudaStream_t stream) {
+  using Sh = Shape<kWarps, kRows>;
   const int lanes = B * C;
   hausdorff_lanes_init_kernel<<<(lanes + 255) / 256, 256, 0, stream>>>(
       live, lanes, H);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  const dim3 grid(lanes, (nqp + kRowsPerBlock - 1) / kRowsPerBlock);
-  hausdorff_lanes_kernel<W><<<grid, kThreads, 0, stream>>>(
+  const dim3 grid(lanes, (nqp + Sh::kRowsPerBlock - 1) / Sh::kRowsPerBlock);
+  hausdorff_lanes_kernel<W, kWarps, kRows><<<grid, Sh::kThreads, 0, stream>>>(
       q_c, n_q, pts, pts_valid, extent, ids, live, C, nqp, S, nd, H);
   return (int)cudaGetLastError();
+}
+
+template <int kWarps, int kRows>
+int launch_shape(const float* q_c, const int* n_q, const float* pts,
+                 const uint8_t* pts_valid, const int* extent,
+                 const int64_t* ids, const uint8_t* live, int B, int C,
+                 int nqp, int S, int nd, int W, float* H,
+                 cudaStream_t stream) {
+  if (nqp > 65535 * Shape<kWarps, kRows>::kRowsPerBlock)
+    return (int)cudaErrorInvalidValue;
+  switch (W) {
+#define CASE(w) \
+    case w: return launch<w, kWarps, kRows>(q_c, n_q, pts, pts_valid, \
+                                            extent, ids, live, B, C, nqp, \
+                                            S, nd, H, stream);
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // q_c (B, nqp, W) f32, n_q (B,) int32, pts (S, nd, W) f32, pts_valid
 // (S, nd) bool, extent (S,) int32, ids (B, C) int64, live (B, C) bool, all
-// contiguous -> H (B, C) f32.  W in 1..8.  Two launches on `stream` (the
-// output pre-pass, then the lanes); returns cudaGetLastError().
+// contiguous -> H (B, C) f32.  W in 1..8; `variant` indexes
+// HAUSDORFF_GRID_VARIANTS.  Two launches on `stream` (the output pre-pass,
+// then the lanes); returns cudaGetLastError().
 extern "C" int hausdorff_lanes_launch(const float* q_c, const int* n_q,
                                       const float* pts,
                                       const uint8_t* pts_valid,
                                       const int* extent, const int64_t* ids,
                                       const uint8_t* live, int B, int C,
-                                      int nqp, int S, int nd, int W, float* H,
-                                      void* stream) {
-  if (B < 1 || C < 1 || nqp < 1 || S < 1 || nd < 1 ||
-      nqp > 65535 * kRowsPerBlock)
+                                      int nqp, int S, int nd, int W,
+                                      int variant, float* H, void* stream) {
+  if (B < 1 || C < 1 || nqp < 1 || S < 1 || nd < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-#define CASE(w) \
-    case w: return launch<w>(q_c, n_q, pts, pts_valid, extent, ids, live, \
-                             B, C, nqp, S, nd, H, s);
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-#undef CASE
+  switch (variant) {
+#define VARIANT(v, warps, rows) \
+    case v: return launch_shape<warps, rows>(q_c, n_q, pts, pts_valid, \
+                                             extent, ids, live, B, C, nqp, \
+                                             S, nd, W, H, s);
+    HAUSDORFF_GRID_VARIANTS(VARIANT)
+#undef VARIANT
     default: return (int)cudaErrorInvalidValue;
   }
 }

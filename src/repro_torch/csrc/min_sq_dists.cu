@@ -33,7 +33,8 @@
 // Design: the pair axis fills the card, and only valid work is done.  Of
 // 4-16 warps x 2-8 rows a thread x 1-2 minima a row, 8 x 2 x 2 was among
 // the fastest at the oracle's shape on an H100, and the fastest of those
-// for one pair.
+// for one pair; it is variant 0, the default, of the shapes listed in
+// MIN_SQ_DISTS_VARIANTS below.
 //  * Grid (P pairs, row blocks of kRowsPerBlock).  A block whose rows are
 //    all invalid writes BIG and exits.
 //  * Every warp of a block holds the block's rows (kRows per thread) and
@@ -56,24 +57,30 @@
 namespace {
 
 constexpr float kBig = 3.4e38f;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 2;                          // query rows per thread
-// rows per block, held by every warp; PAIR_ROWS_PER_BLOCK in
-// repro_torch/kernels/hausdorff.py
-constexpr int kRowsPerBlock = 32 * kRows;         // 64
-constexpr int kAcc = 2;                           // minima per row
 constexpr int kPer = 4;                           // points per thread per tile
 constexpr int kSeg = kPer * 32;                   // one warp's tile segment
-constexpr int kTile = kWarps * kSeg;              // 1024 points per tile
 
-template <int W>
-__global__ void __launch_bounds__(kThreads)
+// The launch shapes this file instantiates: (variant, warps a block, query
+// rows a thread, minima a row); variant 0 is the default, the others the
+// tuner's candidates.  repro_torch/kernels/autotune.py
+// VARIANTS["min_sq_dists"] lists the same shapes in the same order.  A
+// block covers 32 * rows query rows whatever its warp count (64 for the
+// default: PAIR_ROWS_PER_BLOCK in repro_torch/kernels/hausdorff.py, which
+// csrc/nn_distance.cu shares).  16 warps would need 64 KB of static shared
+// memory at W = 8, past the 48 KB limit.
+#define MIN_SQ_DISTS_VARIANTS(X) \
+  X(0, 8, 2, 2) X(1, 4, 2, 2) X(2, 8, 4, 2) X(3, 8, 2, 1)
+
+template <int W, int kWarps, int kRows, int kAcc>
+__global__ void __launch_bounds__(kWarps * 32)
 min_sq_dists_pairs_kernel(const float* __restrict__ q,
                           const uint8_t* __restrict__ qv,
                           const float* __restrict__ ds,
                           const uint8_t* __restrict__ dsv, int nq, int nd,
                           float* __restrict__ out) {
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kRowsPerBlock = 32 * kRows;       // rows, held by every warp
+  constexpr int kTile = kWarps * kSeg;            // points a tile
   __shared__ float s_d[kWarps][kSeg * W];         // each warp's segment
   __shared__ float s_part[kWarps][kRowsPerBlock]; // each warp's row minima
 
@@ -193,33 +200,50 @@ min_sq_dists_pairs_kernel(const float* __restrict__ q,
   }
 }
 
-template <int W>
+template <int W, int kWarps, int kRows, int kAcc>
 int launch(const float* q, const uint8_t* qv, const float* ds,
            const uint8_t* dsv, int P, int nq, int nd, float* out,
            cudaStream_t stream) {
+  constexpr int kRowsPerBlock = 32 * kRows;
   const dim3 grid(P, (nq + kRowsPerBlock - 1) / kRowsPerBlock);
-  min_sq_dists_pairs_kernel<W><<<grid, kThreads, 0, stream>>>(
-      q, qv, ds, dsv, nq, nd, out);
+  min_sq_dists_pairs_kernel<W, kWarps, kRows, kAcc>
+      <<<grid, kWarps * 32, 0, stream>>>(q, qv, ds, dsv, nq, nd, out);
   return (int)cudaGetLastError();
+}
+
+template <int kWarps, int kRows, int kAcc>
+int launch_shape(const float* q, const uint8_t* qv, const float* ds,
+                 const uint8_t* dsv, int P, int nq, int nd, int W,
+                 float* out, cudaStream_t stream) {
+  if (nq > 65535 * 32 * kRows) return (int)cudaErrorInvalidValue;
+  switch (W) {
+#define CASE(w) \
+    case w: return launch<w, kWarps, kRows, kAcc>(q, qv, ds, dsv, P, nq, \
+                                                  nd, out, stream);
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // q (nq, W) f32, qv (nq,) bool or null, ds (P, nd, W) f32, dsv (P, nd)
-// bool, all contiguous -> out (P, nq) f32.  W in 1..8.  Returns
-// cudaGetLastError() after the launch.
+// bool, all contiguous -> out (P, nq) f32.  W in 1..8; `variant` indexes
+// MIN_SQ_DISTS_VARIANTS.  Returns cudaGetLastError() after the launch.
 extern "C" int min_sq_dists_pairs_launch(const float* q, const uint8_t* qv,
                                          const float* ds, const uint8_t* dsv,
                                          int P, int nq, int nd, int W,
-                                         float* out, void* stream) {
-  if (P < 1 || nq < 1 || nd < 1 || nq > 65535 * kRowsPerBlock)
-    return (int)cudaErrorInvalidValue;
+                                         int variant, float* out,
+                                         void* stream) {
+  if (P < 1 || nq < 1 || nd < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-#define CASE(w) \
-    case w: return launch<w>(q, qv, ds, dsv, P, nq, nd, out, s);
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-#undef CASE
+  switch (variant) {
+#define VARIANT(v, warps, rows, acc) \
+    case v: return launch_shape<warps, rows, acc>(q, qv, ds, dsv, P, nq, \
+                                                  nd, W, out, s);
+    MIN_SQ_DISTS_VARIANTS(VARIANT)
+#undef VARIANT
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -20,9 +20,16 @@ with ``device="cpu"``) and answers declarative batches through
 
 ``default_chunk`` is the refine chunk of ExactHaus queries that leave
 ``chunk`` unset and of the joinable ops; chunk never changes a result.
+:meth:`QueryEngine.tune` sweeps the chunk and the launch shapes of the
+swept kernels (:mod:`repro_torch.engine.tune`).
 The JAX engine also keeps an executable cache, one compiled program per
-(op, bucket, k) key.  Eager PyTorch compiles nothing, so there is nothing
-to cache and that part is not ported; ``EngineStats`` keeps the query,
+(op, bucket, k) key, keyed on the autotune epoch.  Eager PyTorch compiles
+nothing, so there is nothing to cache and that part is not ported: each
+kernel launch reads the table when it is made.  The only cache of the
+port that replays launches, the row-stage CUDA graphs of
+``core/repo_mutate.py``, captures no kernel of ``repro_torch.kernels``, so
+nothing keys on the epoch; the result LRU stays keyed on data epochs,
+because a tuned launch shape gives bitwise the same results; ``EngineStats`` keeps the query,
 dispatch, result-cache, planner and publish counters.  The dispatcher's
 layout epoch (``LocalDispatcher.repo_epoch``, bumped by a live tier
 growth) keys no cache here; it is kept so that growth reads the same
@@ -332,6 +339,21 @@ class QueryEngine:
         # keys; a live repository installs them (set_repo_epoch)
         self._repo_epoch = 0
         self._slot_epochs = None
+
+    # -- autotuning --------------------------------------------------------
+
+    def tune(self, **kw) -> dict:
+        """One-time measured sweep at THIS engine's repository shapes (see
+        :mod:`repro_torch.engine.tune`): installs the fastest launch shape
+        of each swept kernel per (card, shape bucket) in the process-global
+        autotune table, each gated on bitwise equality with the default
+        shape, and picks the fastest ExactHaus refinement chunk as
+        ``self.default_chunk``; a candidate replaces the default only
+        where its gain over it, round by round, exceeds the spread of
+        those gains.  On the CPU only the chunk is tuned.
+        Returns the tuner's report dict."""
+        from repro_torch.engine.tune import tune_engine
+        return tune_engine(self, **kw)
 
     # -- repository epochs (live mutations) -------------------------------
 

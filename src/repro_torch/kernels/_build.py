@@ -31,14 +31,16 @@ NVCC_FLAGS = (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-#: kernel name -> (source file, C entry point, argtypes)
+#: kernel name -> (source file, C entry point, argtypes); the entry points
+#: of the three swept kernels end their ints with the launch shape's
+#: variant index (``repro_torch.kernels.autotune.VARIANTS``)
 KERNELS = {
     "bound_grid": ("bound_grid.cu", "bound_grid_launch",
-                   [_P] * 8 + [_I] * 5 + [_P] * 3),
+                   [_P] * 8 + [_I] * 6 + [_P] * 3),
     "hausdorff_grid": ("hausdorff_grid.cu", "hausdorff_lanes_launch",
-                       [_P] * 7 + [_I] * 6 + [_P] * 2),
+                       [_P] * 7 + [_I] * 7 + [_P] * 2),
     "min_sq_dists": ("min_sq_dists.cu", "min_sq_dists_pairs_launch",
-                     [_P] * 4 + [_I] * 4 + [_P] * 2),
+                     [_P] * 4 + [_I] * 5 + [_P] * 2),
     "set_intersect": ("set_intersect.cu", "set_intersect_launch",
                       [_P] * 2 + [_I] * 3 + [_P] * 2),
     "nn_distance": ("nn_distance.cu", "nn_distance_batched_launch",

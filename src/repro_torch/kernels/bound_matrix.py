@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.hausdorff import MAX_COORDS, _stream, check_cuda
 
 MAX_LEVELS = 32
@@ -25,11 +25,12 @@ MAX_GRID_YZ = 65535
 MATRIX_ROWS = 16
 
 
-def bound_grid(oq, rq, q_ok, od, rd, d_ok, *, levels):
+def bound_grid(oq, rq, q_ok, od, rd, d_ok, *, levels, config=None):
     """Per-level (LB, UB), each (L, B, S) float32, for query trees
     oq (B, N, W) / rq, q_ok (B, N) against corpus trees od (S, N, W) /
     rd, d_ok (S, N); ``levels`` is a tuple of (start, stop) node slices
-    inside [0, N)."""
+    inside [0, N).  The launch shape is ``config``, else the table's for
+    (B, S) on this device (``autotune.resolve``)."""
     f32, b8 = torch.float32, torch.bool
     dev = check_cuda("bound_grid",
                      {"oq": oq, "rq": rq, "q_ok": q_ok, "od": od, "rd": rd,
@@ -47,6 +48,7 @@ def bound_grid(oq, rq, q_ok, od, rd, d_ok, *, levels):
     if not 1 <= L <= MAX_LEVELS or any(
             not 0 <= a < b <= N for a, b in levels):
         raise ValueError(f"bound_grid: bad levels {levels} for N={N}")
+    cfg = autotune.resolve("bound_grid", (B, S), dev, config)
     starts = (ctypes.c_int * L)(*[a for a, _ in levels])
     stops = (ctypes.c_int * L)(*[b for _, b in levels])
     LB = torch.empty((L, B, S), dtype=f32, device=dev)
@@ -55,7 +57,8 @@ def bound_grid(oq, rq, q_ok, od, rd, d_ok, *, levels):
     with torch.cuda.device(dev):
         rc = fn(oq.data_ptr(), rq.data_ptr(), q_ok.data_ptr(), od.data_ptr(),
                 rd.data_ptr(), d_ok.data_ptr(), ctypes.addressof(starts),
-                ctypes.addressof(stops), L, B, S, N, W, LB.data_ptr(),
+                ctypes.addressof(stops), L, B, S, N, W,
+                autotune.variant("bound_grid", cfg), LB.data_ptr(),
                 UB.data_ptr(), _stream(dev))
     _build.launched("bound_grid", rc)
     return LB, UB

@@ -10,23 +10,39 @@ the live lanes of an ExactHaus phase-2 chunk straight from the resident
 corpus (one launch per chunk), and ``hausdorff_grid`` is the JAX-shaped
 grid op as one call into it.  The kernel wrappers take CUDA tensors only
 and raise on anything else; ``repro_torch.kernels.ops`` routes CPU tensors
-to the plain versions.
+to the plain versions.  Both kernels are built at several launch shapes;
+each call launches the one ``autotune.resolve`` gives for its shapes and
+device (the default until the engine's ``tune()`` installs another), or
+the ``config`` its caller passes.
 Sources: ``repro_torch/csrc/``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 
 MAX_COORDS = 8
-#: query rows one block of the lanes kernel covers (kRowsPerBlock in
-#: csrc/hausdorff_grid.cu); callers round their row count up to it
+#: query rows one block of the lanes kernel covers at its default launch
+#: shape (kRowsPerBlock of variant 0 in csrc/hausdorff_grid.cu); another
+#: shape covers ``autotune.rows_per_block("hausdorff_grid", cfg)``.  Phase 2
+#: rounds its query rows up to this one at every shape: the kernel skips
+#: the rows at or past n_q, so the grain need not follow the shape
 ROWS_PER_BLOCK = 256
 MAX_GRID_Y = 65535
-#: query rows one block of the pair kernels covers (kRowsPerBlock in
-#: csrc/min_sq_dists.cu and csrc/nn_distance.cu)
+#: query rows one block of csrc/nn_distance.cu covers, and of
+#: csrc/min_sq_dists.cu at its default launch shape (another covers
+#: ``autotune.rows_per_block("min_sq_dists", cfg)``)
 PAIR_ROWS_PER_BLOCK = 64
+
+
+def lanes_config(pts: torch.Tensor,
+                 config: autotune.KernelConfig | None = None):
+    """The lanes kernel's launch shape for the resident corpus pts
+    (S, nd, W): keyed on the corpus's point capacity, (nd, nd), as the JAX
+    package keys its pair-grid kernel on the repository's."""
+    nd = pts.shape[-2]
+    return autotune.resolve("hausdorff_grid", (nd, nd), pts.device, config)
 
 
 def check_cuda(name: str, tensors: dict, dtypes: dict) -> torch.device:
@@ -55,14 +71,17 @@ def _stream(dev: torch.device) -> int:
 
 def min_sq_dists_pairs(q: torch.Tensor, ds: torch.Tensor,
                        q_valid: torch.Tensor | None,
-                       ds_valid: torch.Tensor) -> torch.Tensor:
+                       ds_valid: torch.Tensor,
+                       config: autotune.KernelConfig | None = None
+                       ) -> torch.Tensor:
     """Per-row min squared distance of one query set to each of P datasets,
     one launch.
 
     q (nq, W) float32 and q_valid (nq,) bool, or None where every row is
     valid; ds (P, nd, W) float32, ds_valid (P, nd) bool -> (P, nq)
     float32: from BIG (BIG where D_p has no valid point), and BIG on
-    invalid rows, whose work is skipped."""
+    invalid rows, whose work is skipped.  The launch shape is
+    ``config``, else the table's for (nq, nd) on this device."""
     f32, b8 = torch.float32, torch.bool
     tensors = {"q": q, "ds": ds, "ds_valid": ds_valid}
     dtypes = {"q": f32, "ds": f32, "ds_valid": b8, "q_valid": b8}
@@ -71,10 +90,12 @@ def min_sq_dists_pairs(q: torch.Tensor, ds: torch.Tensor,
     dev = check_cuda("min_sq_dists", tensors, dtypes)
     nq, W = q.shape
     P, nd = ds_valid.shape
+    cfg = autotune.resolve("min_sq_dists", (nq, nd), dev, config)
     if (ds.shape != (P, nd, W)
             or (q_valid is not None and q_valid.shape != (nq,))
             or not 1 <= W <= MAX_COORDS or min(P, nq, nd) < 1
-            or nq > MAX_GRID_Y * PAIR_ROWS_PER_BLOCK):
+            or nq > MAX_GRID_Y * autotune.rows_per_block("min_sq_dists",
+                                                         cfg)):
         raise ValueError(
             f"min_sq_dists: shapes q {tuple(q.shape)}, ds {tuple(ds.shape)}"
             f", q_valid {None if q_valid is None else tuple(q_valid.shape)}"
@@ -84,7 +105,8 @@ def min_sq_dists_pairs(q: torch.Tensor, ds: torch.Tensor,
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), 0 if q_valid is None else q_valid.data_ptr(),
                 ds.data_ptr(), ds_valid.data_ptr(), P, nq, nd, W,
-                out.data_ptr(), _stream(dev))
+                autotune.variant("min_sq_dists", cfg), out.data_ptr(),
+                _stream(dev))
     _build.launched("min_sq_dists", rc)
     return out
 
@@ -122,7 +144,9 @@ def valid_extent(valid: torch.Tensor, block: int = 4096) -> torch.Tensor:
 
 def hausdorff_lanes(q_c: torch.Tensor, n_q: torch.Tensor, pts: torch.Tensor,
                     pts_valid: torch.Tensor, extent: torch.Tensor,
-                    ids: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+                    ids: torch.Tensor, live: torch.Tensor,
+                    config: autotune.KernelConfig | None = None
+                    ) -> torch.Tensor:
     """H(Q_b -> D_{ids[b, c]}) for the live lanes of a (B, C) grid, read
     from the resident corpus, one launch.
 
@@ -130,7 +154,8 @@ def hausdorff_lanes(q_c: torch.Tensor, n_q: torch.Tensor, pts: torch.Tensor,
     int32 their counts; pts (S, nd, W) float32, pts_valid (S, nd) bool;
     extent (S,) int32, no valid point of slot s at or past extent[s];
     ids (B, C) int64 slot ids, live (B, C) bool -> (B, C) float32: BIG on
-    dead lanes, -BIG on live lanes of a query with no valid row."""
+    dead lanes, -BIG on live lanes of a query with no valid row.  The
+    launch shape is ``config``, else :func:`lanes_config`'s."""
     f32, b8, i32 = torch.float32, torch.bool, torch.int32
     dev = check_cuda("hausdorff_grid",
                      {"q_c": q_c, "n_q": n_q, "pts": pts,
@@ -141,11 +166,13 @@ def hausdorff_lanes(q_c: torch.Tensor, n_q: torch.Tensor, pts: torch.Tensor,
     B, nqp, W = q_c.shape
     S, nd = pts_valid.shape
     C = ids.shape[-1]
+    cfg = lanes_config(pts, config)
     if (n_q.shape != (B,) or pts.shape != (S, nd, W)
             or extent.shape != (S,) or ids.shape != (B, C)
             or live.shape != (B, C) or not 1 <= W <= MAX_COORDS
             or min(B, C, nqp, S, nd) < 1
-            or nqp > MAX_GRID_Y * ROWS_PER_BLOCK):
+            or nqp > MAX_GRID_Y * autotune.rows_per_block("hausdorff_grid",
+                                                          cfg)):
         raise ValueError(
             f"hausdorff_grid: shapes q_c {tuple(q_c.shape)}, n_q "
             f"{tuple(n_q.shape)}, pts {tuple(pts.shape)}, pts_valid "
@@ -156,7 +183,8 @@ def hausdorff_lanes(q_c: torch.Tensor, n_q: torch.Tensor, pts: torch.Tensor,
     with torch.cuda.device(dev):
         rc = fn(q_c.data_ptr(), n_q.data_ptr(), pts.data_ptr(),
                 pts_valid.data_ptr(), extent.data_ptr(), ids.data_ptr(),
-                live.data_ptr(), B, C, nqp, S, nd, W, out.data_ptr(),
+                live.data_ptr(), B, C, nqp, S, nd, W,
+                autotune.variant("hausdorff_grid", cfg), out.data_ptr(),
                 _stream(dev))
     _build.launched("hausdorff_grid", rc)
     return out

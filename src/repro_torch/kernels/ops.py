@@ -9,11 +9,18 @@ for ``bound_matrices`` (the JAX package's matrix op and the pruned NNP's
 ``bound_row_ub``, its masked row min fused in); the joinable ops'
 ``plane_weighted_intersect`` is one ``set_intersect`` call, and the ring
 Hausdorff's per-hop ``min_sq_dists_pairs`` the row minima under
-``directed_hausdorff_pairs``.  There is no
-size-based routing and no autotune table: a CUDA tensor always launches
-the kernel (or raises), a CPU tensor always takes the plain version, and
-the two are bitwise equal.  ``LAUNCHES[name]`` counts kernel
-launches; the plain versions book none.
+``directed_hausdorff_pairs``.
+
+The route follows the device, never the size: a CUDA tensor always
+launches the kernel (or raises), a CPU tensor always takes the plain
+version, and the two are bitwise equal.  What the autotune table
+(``repro_torch.kernels.autotune``) decides is the launch shape of the
+three kernels built at several: ``bound_grid``, ``hausdorff_grid`` and
+``min_sq_dists``.  The ops that launch them (``bound_grid``,
+``directed_hausdorff_lanes``, ``min_sq_dists_pairs``) take an optional
+``config``, which beats the table, and pass it to the kernel wrapper,
+which resolves it; on the CPU it is ignored.  ``LAUNCHES[name]`` counts
+kernel launches; the plain versions book none.
 """
 from __future__ import annotations
 
@@ -58,13 +65,13 @@ def directed_hausdorff_pairs(q, ds, q_valid, ds_valid) -> torch.Tensor:
     return torch.amax(nnd, dim=-1)
 
 
-def min_sq_dists_pairs(q, ds, q_valid, ds_valid) -> torch.Tensor:
+def min_sq_dists_pairs(q, ds, q_valid, ds_valid, config=None) -> torch.Tensor:
     """Per-row min squared distance of one query set q (nq, W) / q_valid
     (nq,) to each of P datasets ds (P, nd, W) / ds_valid (P, nd): (P, nq)
     float32, BIG where D_p has no valid point and on invalid rows; one
     ``min_sq_dists`` launch on the card."""
     if _route("min_sq_dists_pairs", q):
-        return hausdorff.min_sq_dists_pairs(q, ds, q_valid, ds_valid)
+        return hausdorff.min_sq_dists_pairs(q, ds, q_valid, ds_valid, config)
     return ref.min_sq_dists_pairs(q, ds, q_valid, ds_valid)
 
 
@@ -111,7 +118,7 @@ def directed_hausdorff_lanes_plain(q_c, n_q, pts, pts_valid, extent, ids,
 
 
 def directed_hausdorff_lanes(q_c, n_q, pts, pts_valid, extent, ids,
-                             live) -> torch.Tensor:
+                             live, config=None) -> torch.Tensor:
     """H(Q_b -> D_{ids[b, c]}) for the live lanes of an ExactHaus phase-2
     chunk: (B, C), BIG on dead lanes, -BIG where query b has no valid row.
 
@@ -124,16 +131,17 @@ def directed_hausdorff_lanes(q_c, n_q, pts, pts_valid, extent, ids,
         return directed_hausdorff_lanes_plain(q_c, n_q, pts, pts_valid,
                                               extent, ids, live)
     return hausdorff.hausdorff_lanes(q_c, n_q, pts, pts_valid, extent, ids,
-                                     live)
+                                     live, config)
 
 
-def bound_grid(oq, rq, q_ok, od, rd, d_ok, *, levels):
+def bound_grid(oq, rq, q_ok, od, rd, d_ok, *, levels, config=None):
     """Fused multi-level (B, S) frontier bounds: (LB, UB), each
     (len(levels), B, S).  See ``ref.frontier_bound_levels``."""
     levels = tuple(levels)
     if not _route("bound_grid", oq):
         return ref.frontier_bound_levels(oq, rq, q_ok, od, rd, d_ok, levels)
-    return bound_matrix.bound_grid(oq, rq, q_ok, od, rd, d_ok, levels=levels)
+    return bound_matrix.bound_grid(oq, rq, q_ok, od, rd, d_ok, levels=levels,
+                                   config=config)
 
 
 def set_intersect_counts(sa: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:

@@ -976,3 +976,160 @@ def test_topk_emd_on_card(cuda_device):
     want = emd.cell_histogram(cpu.ds_index.points, cpu.ds_index.valid,
                               cpu.space_lo, cpu.space_hi, 4)
     assert _bits_equal(h.cpu(), want)
+
+
+# -- launch-shape variants (repro_torch.kernels.autotune) --------------------
+
+@pytest.mark.parametrize("v", range(4))
+@pytest.mark.parametrize("B,C,nq,S,nd,W", [(1, 1, 1, 1, 1, 2),
+                                           (3, 5, 300, 40, 513, 2),
+                                           (2, 3, 1100, 9, 70, 2),
+                                           (2, 4, 50, 30, 1500, 3),
+                                           (1, 2, 8, 4, 20, 8)])
+def test_hausdorff_lanes_variants(cuda_device, v, B, C, nq, S, nd, W):
+    """Every launch shape of the lanes kernel is bitwise the plain version:
+    row counts past one and several row blocks of each shape, more points
+    than a tile, W = 8 (the most shared memory)."""
+    from repro_torch.kernels import autotune
+    cfg = autotune.VARIANTS["hausdorff_grid"][v]
+    rng = np.random.default_rng(100 * v + B + C + nq + nd)
+    q, qv, pts, pv, ids, live = _lanes_inputs(rng, cuda_device, B, C, nq,
+                                              S, nd, W)
+    q_c, n_q = hausdorff.compact_rows(q, qv)
+    extent = hausdorff.valid_extent(pv)
+    ops.reset_launches()
+    got = ops.directed_hausdorff_lanes(q_c, n_q, pts, pv, extent, ids, live,
+                                       config=cfg)
+    assert ops.LAUNCHES["hausdorff_grid"] == 1
+    want = ops.directed_hausdorff_lanes_plain(q_c, n_q, pts, pv, extent,
+                                              ids, live)
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("v", range(4))
+@pytest.mark.parametrize("P,nq,nd,W", [(1, 1, 1, 2), (3, 37, 130, 2),
+                                       (32, 300, 2100, 2), (2, 129, 700, 3),
+                                       (2, 65, 33, 8)])
+def test_min_sq_dists_variants(cuda_device, v, P, nq, nd, W):
+    from repro_torch.kernels import autotune
+    cfg = autotune.VARIANTS["min_sq_dists"][v]
+    rng = np.random.default_rng(100 * v + P + nq + nd)
+    q = _pts(rng, (nq, W), cuda_device)
+    ds = _pts(rng, (P, nd, W), cuda_device)
+    qv = _mask(rng, (nq,), cuda_device, p=0.7)
+    dv = _mask(rng, (P, nd), cuda_device, p=0.6)
+    ops.reset_launches()
+    got = ops.min_sq_dists_pairs(q, ds, qv, dv, config=cfg)
+    assert ops.LAUNCHES["min_sq_dists"] == 1
+    assert _bits_equal(got, ref.min_sq_dists_pairs(q, ds, qv, dv))
+    got = hausdorff.min_sq_dists_pairs(q, ds, None, dv, config=cfg)
+    assert _bits_equal(got, ref.min_sq_dists_pairs(
+        q, ds, torch.ones_like(qv), dv))
+
+
+@pytest.mark.parametrize("v", range(4))
+@pytest.mark.parametrize("B,S,N,W", [(1, 1, 1, 2), (3, 130, 7, 2),
+                                     (33, 257, 15, 2), (5, 300, 31, 2),
+                                     (9, 65, 15, 8)])
+def test_bound_grid_variants(cuda_device, v, B, S, N, W):
+    from repro_torch.kernels import autotune
+    cfg = autotune.VARIANTS["bound_grid"][v]
+    rng = np.random.default_rng(100 * v + B + S + N)
+    levels = tuple(((1 << l) - 1, (1 << (l + 1)) - 1)
+                   for l in range(int(np.log2(N + 1))))
+    oq, od = _pts(rng, (B, N, W), cuda_device), _pts(rng, (S, N, W),
+                                                     cuda_device)
+    rq = torch.from_numpy(rng.uniform(0, 3, (B, N)).astype(np.float32)).to(
+        cuda_device)
+    rd = torch.from_numpy(rng.uniform(0, 3, (S, N)).astype(np.float32)).to(
+        cuda_device)
+    qok, dok = _mask(rng, (B, N), cuda_device), _mask(rng, (S, N),
+                                                      cuda_device)
+    dok[S - 1] = False
+    ops.reset_launches()
+    got = ops.bound_grid(oq, rq, qok, od, rd, dok, levels=levels, config=cfg)
+    assert ops.LAUNCHES["bound_grid"] == 1
+    want = ref.frontier_bound_levels(oq, rq, qok, od, rd, dok, levels)
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+
+
+def test_unbuilt_launch_shape_is_refused(cuda_device):
+    from repro_torch.kernels import autotune
+    rng = np.random.default_rng(0)
+    q = _pts(rng, (10, 2), cuda_device)
+    v = torch.ones(10, dtype=torch.bool, device=cuda_device)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="no variant"):
+        ops.min_sq_dists_pairs(q, q[None], v, v[None],
+                               config=autotune.KernelConfig(warps=16, rows=2,
+                                                            acc=2))
+    assert ops.LAUNCHES["min_sq_dists"] == 0
+
+
+def test_engine_tune_on_card(cuda_device):
+    """tune() installs a gated launch shape per swept kernel for this card
+    and a chunk; ExactHaus is bitwise the untuned engine's afterwards."""
+    from repro_torch.core.build import build_repository
+    from repro_torch.data import synthetic
+    from repro_torch.engine import Query, QueryEngine
+    from repro_torch.kernels import autotune
+
+    datasets = synthetic.trajectory_repository(200, seed=1,
+                                               n_points=(30, 600))
+    q_sets = synthetic.trajectory_repository(12, seed=7, n_points=(30, 600))
+    repo, _ = build_repository(datasets, leaf_capacity=16, theta=5,
+                               device=cuda_device)
+    engine = QueryEngine(repo, result_cache_size=0)
+    items = [Query(op="topk_hausdorff", q=q, k=5) for q in q_sets]
+    autotune.clear()
+    try:
+        want = engine.search(items)
+        e0 = autotune.epoch()
+        report = engine.tune(repeats=2)
+        assert autotune.epoch() > e0
+        assert report["device"] == ["cuda", torch.cuda.get_device_name(0)]
+        rows = [report["min_sq_dists"], report["hausdorff_grid"],
+                *report["bound_grid"].values()]
+        for row in rows:
+            assert not row["plain_only"] and len(row["timings_s"]) >= 1
+            assert row["candidates_rejected_bitwise"] == 0
+        assert len(autotune.report()["entries"]) == len(rows)
+        assert engine.default_chunk in (16, 32, 64)
+        got = engine.search(items)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.vals.view(np.uint32),
+                                          w.vals.view(np.uint32))
+            np.testing.assert_array_equal(g.ids, w.ids)
+    finally:
+        autotune.clear()
+
+
+def test_lm_on_card(cuda_device):
+    """The reduced trajectory LM on the card against the same weights on
+    the CPU (logits to 0.03, as the CPU parity tests hold the port to the
+    JAX package), decode after prefill against forward at the reference's
+    bounds, and greedy generation with both caches."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LanguageModel
+
+    cfg = configs.get_reduced("spadas_trajlm")
+    card = LanguageModel(cfg, device=cuda_device, seed=3)
+    cpu = LanguageModel(cfg, device="cpu", seed=3)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, 40)))
+    full = card(toks.to(cuda_device))
+    assert full.device.type == "cuda" and full.dtype == torch.float32
+    np.testing.assert_allclose(full.cpu().numpy(), cpu(toks).numpy(),
+                               atol=0.03, rtol=0)
+    for kv, atol, rtol in (("bf16", 0.15, 0.05), ("int8", 0.2, 0.1)):
+        _, caches, n = card.prefill(toks[:, :-1], 48, kv)
+        lg, _ = card.decode_step(toks[:, -1:], caches, n)
+        torch.testing.assert_close(lg[:, 0], full[:, -1], atol=atol,
+                                   rtol=rtol)
+        out = serve.generate(card, toks[:, :16], 8, kv)
+        want = serve.generate(cpu, toks[:, :16], 8, kv)
+        assert out.tokens.shape == (4, 8) and out.tokens.is_cuda
+        np.testing.assert_allclose(out.logits[0].cpu().numpy(),
+                                   want.logits[0].numpy(), atol=0.03, rtol=0)

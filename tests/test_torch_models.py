@@ -1,0 +1,280 @@
+"""The port's dense LM (``repro_torch.models``) against ``repro.models.model``
+on the CPU, with the same weights (``params_from_jax``) and the same numpy
+tokens.
+
+Configs: reduced ``spadas_trajlm`` (tied embeddings, 2 layers of 128) and
+reduced ``llama3_8b`` (GQA with 4 heads on 2 KV heads, untied head, 3
+layers), with 16-wide attention chunks so that prefill runs the chunked
+online softmax over several q and kv blocks.
+
+Tolerances, and why: both packages compute the projections as bf16
+products and the attention and logits as float32 sums of bf16 operands;
+the products agree bitwise, but float32 sums in another order differ in
+their last bits, and a bf16 rounding downstream turns that into one bf16
+ulp now and then (0.03125 at |x| = 4), which later layers carry on.  So
+logits (|logit| <= ~1 here) are held to ``atol=0.03`` (3x the largest
+difference seen, 0.0117), and the K/V caches, bf16 or int8 dequantized, to
+``atol=0.1`` (2x the largest seen, 0.047 at |x| <= 4.4).  The first
+layer's int8 codes are held to one code and its scales to one bf16 ulp:
+its inputs agree to an ulp.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import layers as JL
+from repro.models import model as M
+from repro_torch import configs
+from repro_torch.models import layers as L
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.model import LanguageModel
+
+LOGIT_ATOL = 0.03
+CACHE_ATOL = 0.1
+B, S, PROMPT = 2, 40, 36
+ARCHS = ("spadas_trajlm", "llama3_8b")
+
+
+def _cfgs(arch, kv="bf16"):
+    kw = dict(attn_q_chunk=16, attn_kv_chunk=16, kv_cache_dtype=kv)
+    return (dataclasses.replace(jconfigs.get_reduced(arch), **kw),
+            dataclasses.replace(configs.get_reduced(arch), **kw))
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def lm(request):
+    """(arch, JAX params, the port's model with the same weights, tokens,
+    the JAX forward logits)."""
+    arch = request.param
+    jcfg, cfg = _cfgs(arch)
+    params = M.init_params(jax.random.PRNGKey(3), jcfg)
+    model = LanguageModel(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params),
+                                          cfg))
+    toks = np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    jfull, _ = M.forward(params, jcfg, {"tokens": jnp.asarray(toks)})
+    return arch, params, model, toks, np.asarray(jfull)
+
+
+def _t(toks):
+    return torch.from_numpy(np.asarray(toks)).long()
+
+
+def _dequant(c, key):
+    """A cache's K or V (either package's) as float32 numpy, dequantized
+    where it is int8."""
+    ours = isinstance(c[key], torch.Tensor)
+    x = c[key]
+    if f"{key}_scale" in c:
+        x = (L.dequantize_kv if ours else JL.dequantize_kv)(
+            x, c[f"{key}_scale"])
+    return x.float().numpy() if ours else np.asarray(x.astype(jnp.float32))
+
+
+def test_forward_matches_jax(lm):
+    _, _, model, toks, jfull = lm
+    got = model(_t(toks))
+    assert got.dtype == torch.float32 and got.shape == jfull.shape
+    np.testing.assert_allclose(got.numpy(), jfull, atol=LOGIT_ATOL, rtol=0)
+
+
+def _jax_prefill(lm, kv):
+    arch, params, _, toks, _ = lm
+    jcfg, _ = _cfgs(arch, kv)
+    return M.prefill(params, jcfg, {"tokens": jnp.asarray(toks[:, :PROMPT])},
+                     max_len=S + 4)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_prefill_matches_jax(lm, kv):
+    _, _, model, toks, _ = lm
+    jl, jc, jn = _jax_prefill(lm, kv)
+    tl, tc, tn = model.prefill(_t(toks[:, :PROMPT]), S + 4, kv)
+    assert tn == jn == PROMPT
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_ATOL,
+                               rtol=0)
+    assert set(tc[0]) == set(jc[0])
+    for key in tc[0]:
+        assert tc[0][key].shape == jc[0][key].shape
+        assert str(tc[0][key].dtype).split(".")[1] == str(jc[0][key].dtype)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(_dequant(tc[0], key), _dequant(jc[0], key),
+                                   atol=CACHE_ATOL, rtol=0)
+        # past the prompt the caches are still empty
+        assert not tc[0][key][:, :, PROMPT:].any()
+    if kv == "int8":
+        for key in ("k", "v"):
+            codes = tc[0][key][0].numpy().astype(np.int32)
+            jcodes = np.asarray(jc[0][key][0]).astype(np.int32)
+            assert np.abs(codes - jcodes).max() <= 1
+            np.testing.assert_allclose(
+                tc[0][f"{key}_scale"][0].float().numpy(),
+                np.asarray(jc[0][f"{key}_scale"][0].astype(jnp.float32)),
+                rtol=2 ** -7, atol=0)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_decode_steps_match_jax(lm, kv):
+    """Three decode steps after the prefill, teacher-forced with the same
+    tokens in both packages; each step's logits and the caches."""
+    arch, params, model, toks, jfull = lm
+    jcfg, _ = _cfgs(arch, kv)
+    _, jc, _ = _jax_prefill(lm, kv)
+    _, tc, _ = model.prefill(_t(toks[:, :PROMPT]), S + 4, kv)
+    for i in range(3):
+        n = PROMPT + i
+        jl, jc = M.decode_step(params, jcfg, jnp.asarray(toks[:, n:n + 1]),
+                               jc, jnp.int32(n))
+        tl, tc = model.decode_step(_t(toks[:, n:n + 1]), tc, n)
+        assert tl.shape == (B, 1, jcfg.vocab_size)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                   atol=LOGIT_ATOL, rtol=0)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(_dequant(tc[0], key), _dequant(jc[0], key),
+                                   atol=CACHE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("kv,atol,rtol", [("bf16", 0.15, 0.05),
+                                          ("int8", 0.2, 0.1)])
+def test_prefill_decode_consistency(lm, kv, atol, rtol):
+    """Decoding token n after an n-token prefill gives the forward logits
+    at position n, at the bounds of ``tests/test_models_smoke.py``
+    (``test_prefill_decode_consistency``, and
+    ``test_int8_kv_cache_decode_matches_fp`` for int8)."""
+    _, _, model, toks, _ = lm
+    full = model(_t(toks))
+    _, caches, n = model.prefill(_t(toks[:, :-1]), S + 4, kv)
+    lg, _ = model.decode_step(_t(toks[:, -1:]), caches, n)
+    np.testing.assert_allclose(lg[:, 0].numpy(), full[:, -1].numpy(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("fault", ["zeroed_cache", "cache_len_minus_1"])
+def test_decode_tolerance_catches_a_planted_fault(lm, kv, fault):
+    """A decode step against a broken cache (zeroed, or the step taken one
+    position early, overwriting the prompt's last K/V) moves the logits
+    past ``LOGIT_ATOL`` of the JAX decode step: the decode comparisons
+    above would see such a fault."""
+    arch, params, model, toks, _ = lm
+    jcfg, _ = _cfgs(arch, kv)
+    _, jc, _ = _jax_prefill(lm, kv)
+    jl, _ = M.decode_step(params, jcfg,
+                          jnp.asarray(toks[:, PROMPT:PROMPT + 1]), jc,
+                          jnp.int32(PROMPT))
+    _, tc, _ = model.prefill(_t(toks[:, :PROMPT]), S + 4, kv)
+    at = PROMPT
+    if fault == "zeroed_cache":
+        for t in tc[0].values():
+            t.zero_()
+    else:
+        at = PROMPT - 1
+    tl, _ = model.decode_step(_t(toks[:, PROMPT:PROMPT + 1]), tc, at)
+    err = np.abs(tl.numpy() - np.asarray(jl)).max()
+    assert err > LOGIT_ATOL, (fault, err)
+
+
+def test_chunked_attention_equals_naive():
+    """As ``tests/test_models_smoke.py::test_chunked_attention_equals_naive``
+    on the port, and against the JAX attention on the same inputs."""
+    rng = np.random.default_rng(0)
+    Bq, Sq, H, KH, D = 2, 128, 8, 2, 16
+    q = rng.normal(size=(Bq, Sq, H, D)).astype(np.float32)
+    k = rng.normal(size=(Bq, Sq, KH, D)).astype(np.float32)
+    v = rng.normal(size=(Bq, Sq, KH, D)).astype(np.float32)
+    G = H // KH
+    s = np.einsum("bqhgd,bkhd->bhgqk", q.reshape(Bq, Sq, KH, G, D).astype(
+        np.float64), k) / np.sqrt(D)
+    s = np.where(np.tril(np.ones((Sq, Sq), bool))[None, None, None], s,
+                 -1e30)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    want = np.einsum("bhgqk,bkhd->bhgqd", p, v)
+    want = np.transpose(want, (0, 3, 1, 2, 4)).reshape(Bq, Sq, H, D)
+    got = L.attention(torch.from_numpy(q), torch.from_numpy(k),
+                      torch.from_numpy(v), causal=True, q_chunk=32,
+                      kv_chunk=16)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+    jgot = JL.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        causal=True, q_chunk=32, kv_chunk=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jgot), atol=2e-6)
+    # ragged: S and T not multiples of the chunks (padding masked)
+    got = L.attention(torch.from_numpy(q[:, :50]), torch.from_numpy(k[:, :50]),
+                      torch.from_numpy(v[:, :50]), causal=True, q_chunk=32,
+                      kv_chunk=16)
+    jgot = JL.attention(jnp.asarray(q[:, :50]), jnp.asarray(k[:, :50]),
+                        jnp.asarray(v[:, :50]), causal=True, q_chunk=32,
+                        kv_chunk=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jgot), atol=2e-6)
+
+
+def test_layers_match_jax():
+    """rmsnorm, rope (half-split), quantize_kv (round half to even) and
+    dequantize_kv bitwise on the same bf16 inputs."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 24, 128)).astype(np.float32)
+    scale = rng.normal(size=(128,)).astype(np.float32)
+    jx, tx = jnp.asarray(x).astype(jnp.bfloat16), torch.from_numpy(x).bfloat16()
+
+    class P:
+        pass
+
+    p = P()
+    p.scale = torch.from_numpy(scale)
+    got = L.rmsnorm(p, tx, 1e-5).float().numpy()
+    want = np.asarray(JL.rmsnorm({"scale": jnp.asarray(scale)}, jx, 1e-5)
+                      .astype(jnp.float32))
+    np.testing.assert_array_equal(got, want)
+    # codes at exact halves: round half to even in both
+    h = np.array([0.5, 1.5, 2.5, -0.5, -2.5, 127.0, 3.0, 0.0], np.float32)
+    xq = np.broadcast_to(h, (1, 2, 3, 8)).copy()
+    codes, sc = L.quantize_kv(torch.from_numpy(xq))
+    jcodes, jsc = JL.quantize_kv(jnp.asarray(xq))
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+    np.testing.assert_array_equal(sc.float().numpy(),
+                                  np.asarray(jsc.astype(jnp.float32)))
+    np.testing.assert_array_equal(
+        L.dequantize_kv(codes, sc).float().numpy(),
+        np.asarray(JL.dequantize_kv(jcodes, jsc).astype(jnp.float32)))
+    kx = rng.normal(size=(2, 24, 4, 32)).astype(np.float32)
+    pos = np.arange(24)[None]
+    got = L.rope(torch.from_numpy(kx), torch.from_numpy(pos), 500000.0)
+    want = JL.rope(jnp.asarray(kx), jnp.asarray(pos), 500000.0)
+    # sin / cos / exp of the two libraries may differ in the last bit
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_unported_kinds_raise(arch):
+    """The dense configs build; MoE, Mamba-2, the hybrids, cross-attention
+    and embedding inputs raise NotImplementedError naming their ROADMAP
+    item."""
+    cfg = configs.get_reduced(arch)
+    dense = cfg.block_pattern == ("attn",) and cfg.embed_input
+    if dense:
+        model = LanguageModel(cfg, device="cpu")
+        n = sum(p.numel() for p in model.parameters())
+        assert n == cfg.param_count()
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+            LanguageModel(cfg, device="cpu")
+
+
+def test_full_config_copy_and_default_device():
+    """The port's configs equal the JAX package's; the full spadas_trajlm
+    holds ~116 M parameters; without a device the model needs the card."""
+    for arch in configs.ARCH_IDS:
+        assert dataclasses.asdict(configs.get(arch)) == \
+            dataclasses.asdict(jconfigs.get(arch))
+        assert dataclasses.asdict(configs.get_reduced(arch)) == \
+            dataclasses.asdict(jconfigs.get_reduced(arch))
+    assert configs.get("spadas_trajlm").param_count() == 116_460_288
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            LanguageModel(configs.get_reduced("spadas_trajlm"))

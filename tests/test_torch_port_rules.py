@@ -33,7 +33,8 @@ REPO = Path(__file__).resolve().parents[1]
 quickstart_main = runpy.run_path(
     str(REPO / "examples" / "quickstart_torch.py"))["main"]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py"]
+    REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
+    REPO / "examples" / "serve_points_torch.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -67,7 +68,15 @@ def test_join_and_serving_modules_are_scanned():
             "src/repro_torch/core/emd.py",
             "src/repro_torch/data/tokens.py",
             "src/repro_torch/data/discovery.py",
-            "examples/quickstart_torch.py"} <= names
+            "examples/quickstart_torch.py",
+            "src/repro_torch/kernels/autotune.py",
+            "src/repro_torch/engine/tune.py",
+            "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/model.py",
+            "src/repro_torch/models/convert.py",
+            "src/repro_torch/configs/spadas_trajlm.py",
+            "src/repro_torch/launch/serve.py",
+            "examples/serve_points_torch.py"} <= names
 
 
 def test_cpu_tensors_take_the_plain_path():
