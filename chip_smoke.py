@@ -168,7 +168,26 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      must also fail on two planted faults (the cache zeroed, the step
      taken at n - 1), the card's prefill logits against the port's CPU
      run of the same weights and prompts (``LM_CPU_ATOL``), and the greedy
-     tokens counted against that run.
+     tokens counted against that run;
+ 18. the LM's other kinds, each serving 8 requests of 64 inputs (256 for
+     the SSM configs: one chunk) and generating 32 with the bf16 cache
+     and, where the config has attention, the int8 cache: grok-1 at one
+     layer (MoE), mamba2_780m whole (Mamba-2), llama-3.2-vision at one
+     repeat of its pattern with a 1,024-token image context and its
+     cross-attention gates at 0.5 (cross-attention), musicgen_medium
+     whole (embedding inputs), all at full width with weights drawn on
+     the card, and jamba at its reduced config (the hybrid); per config
+     prefill ms, decode ms a token, tokens per second, peak memory, the
+     weight-init seconds and one profiled decode step; gates: decode
+     after an n-input prefill against forward at n (MoE without drops),
+     which must fail on the two planted faults (the caches zeroed, or
+     the SSM state alone; the step taken at n - 1 against the caches of
+     the first n - 1 inputs); then the reduced config of each of the six
+     new families on the card against the port's CPU run of the same
+     weights: every block on the card's hidden state (and the MoE on the
+     card's MoE input), prefill and decode logits end to end (MoE
+     routing made continuous), greedy tokens counted.  The phase books
+     no launch of the six kernels.
 
 The second-to-last line is the kernel table as JSON (each row's
 ``launches`` from the local path, ``sharded_launches`` per phase-14 path
@@ -2696,45 +2715,55 @@ def tune_phase(repo, q_sets, res, lat, rows, k, reps):
     return {"tune": summary, "variants": variants, "exact": tuned}
 
 
-def decode_controls(model, tp, kv, want, atol, rtol):
-    """Faults planted in the decode after an n-token prefill, each of
-    which the decode-vs-forward gate must catch: the cache zeroed, and the
-    step taken at position n - 1 (it overwrites the prompt's last K/V and
-    shifts the rotary position by one).  Returns each fault's largest
-    error against the forward logits at position n."""
-    n = tp.shape[1] - 1
+def has_ssm(cfg):
+    return any(k.startswith("mamba") for k in cfg.block_pattern)
+
+
+def decode_controls(model, gate_in, n, kv, want, atol, rtol, ctx=None):
+    """The two planted faults the decode-vs-forward gate must catch: the
+    caches zeroed (the SSM state alone where the config has no
+    attention), and the step taken at n - 1 against the caches of the
+    first n - 1 inputs (attention: the prefill's caches with slot n - 1
+    overwritten; SSM states built by decoding the n - 1 inputs one by one,
+    since a prefill needs whole chunks).  Returns each fault's largest
+    error against the forward logits at n."""
+    cfg = model.cfg
     out = {}
     for fault in ("zeroed_cache", "cache_len_minus_1"):
-        _, caches, _ = model.prefill(tp[:, :-1], n + 5, kv)
+        _, caches, _ = model.prefill(gate_in[:, :n], n + 2, kv, ctx=ctx)
         at = n
         if fault == "zeroed_cache":
-            for t in caches[0].values():
-                t.zero_()
+            for c in caches:
+                for key, val in c.items():
+                    if cfg.has_attention or key == "ssm":
+                        val.zero_()
         else:
             at = n - 1
-        lg, _ = model.decode_step(tp[:, -1:], caches, at)
+            if has_ssm(cfg):
+                caches = model.init_cache(gate_in.shape[0], n + 2, kv)
+                for i in range(n - 1):
+                    model.decode_step(gate_in[:, i:i + 1], caches, i,
+                                      ctx=ctx)
+        lg, _ = model.decode_step(gate_in[:, n:n + 1], caches, at, ctx=ctx)
         err = max_abs(lg[:, 0], want)
         check(not torch.allclose(lg[:, 0], want, atol=atol, rtol=rtol),
-              f"LM {kv}: the decode gate passes a planted fault ({fault}, "
-              f"max abs {err}; atol {atol}, rtol {rtol})")
+              f"{cfg.name} {kv}: the decode gate passes a planted fault "
+              f"({fault}, max abs {err}; atol {atol}, rtol {rtol})")
         out[fault] = err
     return out
 
 
-def decode_profile(model, tp, kv, decode_ms):
-    """One greedy decode step (``decode_step`` and its argmax, as
-    ``serve.generate`` takes it) under torch.profiler, after a prefill of
-    the prompts and one warm step: the device's busy ms, its device
-    operations, and its idle share of the unprofiled step time
-    ``decode_ms`` (the profiler's own cost inflates its wall)."""
-    n = tp.shape[1]
-    logits, caches, _ = model.prefill(tp, n + 2, kv)
-    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-    lg, _ = model.decode_step(tok, caches, n)
-    tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+def decode_profile(model, prompts, kv, step_in, decode_ms, ctx=None):
+    """One decode step and its argmax, as ``serve.generate`` takes it,
+    under torch.profiler after a prefill and one warm step: device busy
+    ms, device operations, and the idle share of the unprofiled step time
+    ``decode_ms``."""
+    n = prompts.shape[1]
+    _, caches, _ = model.prefill(prompts, n + 2, kv, ctx=ctx)
+    model.decode_step(step_in, caches, n, ctx=ctx)
 
     def step():
-        out, _ = model.decode_step(tok, caches, n + 1)
+        out, _ = model.decode_step(step_in, caches, n + 1, ctx=ctx)
         return torch.argmax(out[:, -1], dim=-1)
 
     per_name, busy_ms, wall_ms, n_ops = device_profile(step)
@@ -2742,7 +2771,7 @@ def decode_profile(model, tp, kv, decode_ms):
     return {"device_busy_ms": busy_ms, "device_ops": n_ops,
             "profiled_wall_ms": wall_ms, "step_ms": decode_ms,
             "idle_share_of_step": 1.0 - busy_ms / decode_ms,
-            "top_ops_ms": dict(top)}
+            "top_ops_ms": {k[:80]: v for k, v in top}}
 
 
 def lm_phase(repo, datasets, card_line):
@@ -2801,15 +2830,16 @@ def lm_phase(repo, datasets, card_line):
             check(torch.equal(g.tokens, gen.tokens), f"LM {kv}: repeated "
                   f"generation differs")
         # decode after an n-token prefill == forward at position n
-        full = model(tp)
+        full, _ = model(tp)
         _, caches, n = model.prefill(tp[:, :-1], LM_PROMPT + 4, kv)
         lg, _ = model.decode_step(tp[:, -1:], caches, n)
         cons = max_abs(lg[:, 0], full[:, -1])
         check(torch.allclose(lg[:, 0], full[:, -1], atol=atol, rtol=rtol),
               f"LM {kv}: decode after prefill differs from forward by "
               f"{cons} (atol {atol}, rtol {rtol})")
-        controls = decode_controls(model, tp, kv, full[:, -1], atol, rtol)
-        step = decode_profile(model, tp, kv, decode_ms)
+        controls = decode_controls(model, tp, LM_PROMPT - 1, kv,
+                                   full[:, -1], atol, rtol)
+        step = decode_profile(model, tp, kv, tp[:, -1:], decode_ms)
         # the port's CPU run of the same weights and prompts
         cpu_gen, cpu_s = sync_time(lambda: serve.generate(
             cpu_model, prompts, LM_GEN, kv))
@@ -2838,6 +2868,303 @@ def lm_phase(repo, datasets, card_line):
     out["lm_peak_above_resident_bytes"] = out["peak_memory_bytes"] - base
     log("lm serve: " + json.dumps(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the LM's MoE, Mamba-2, hybrid, cross-attention and
+# embedding-input kinds
+# ---------------------------------------------------------------------------
+
+#: (arch, the cut of its full config (None: the reduced config), prompt
+#: tokens): grok-1 at one of its 64 layers (the MoE path), mamba2 whole
+#: (the SSM path), llama-3.2-vision at one repeat of its 5-layer pattern
+#: with its 1,024-token image context (cross-attention), musicgen whole
+#: (embedding inputs), each at full width; jamba, the composition of the
+#: MoE and SSM paths, at its reduced config (at full width one repeat of
+#: its pattern, 63.6 GB of float32 weights, leaves too little room beside
+#: the resident repository).  SSM prompts are one 256-token chunk.
+KIND_RUNS = (("grok_1_314b", {"n_layers": 1}, 64),
+             ("mamba2_780m", {}, 256),
+             ("llama3_2_vision_11b", {"n_layers": 5}, 64),
+             ("musicgen_medium", {}, 64),
+             ("jamba_v0_1_52b", None, 256))
+#: the six families held against the port's CPU run at their reduced
+#: configs
+KIND_CPU_ARCHS = ("grok_1_314b", "arctic_480b", "mamba2_780m",
+                  "jamba_v0_1_52b", "llama3_2_vision_11b", "musicgen_medium")
+#: the cross-attention gate set in every vision model here: it is zero at
+#: init, where tanh(0) = 0 would hide the whole cross path from the logits
+KIND_XGATE = 0.5
+#: card against CPU: each block fed the card's hidden state (and at the
+#: MoE the card's MoE input, since top-k routing switches experts on a
+#: near tie when its input moves by one bf16 ulp) within 0.03 plus two
+#: bf16 ulps of the element (a block sums up to four rounded bf16 terms),
+#: and logits end to end within LM_CPU_ATOL (the MoE configs on a copy with
+#: every expert chosen and no drop, whose routing is continuous)
+KIND_BLOCK_ATOL = 0.03
+KIND_BLOCK_RTOL = 2.0 ** -6
+#: decode-vs-forward bounds tighter than the reference's (never looser):
+#: musicgen's standard normal input embeddings (the JAX driver's stub for
+#: EnCodec frames) dominate its residual stream, so a step taken one
+#: position early moves its logits by 0.163 / 0.170 (bf16 / int8), under
+#: the reference's int8 bound, while decode agrees with forward to 0.041
+#: / 0.054 (H100 80GB HBM3, 700 W)
+KIND_DECODE_BOUNDS = {"musicgen_medium": {"bf16": (0.1, 0.0),
+                                          "int8": (0.1, 0.0)}}
+
+
+@contextmanager
+def config_as(model, **kw):
+    """``model`` run under a copy of its config with ``kw`` replaced (the
+    weights do not depend on these fields)."""
+    import dataclasses
+
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, **kw)
+    try:
+        yield model
+    finally:
+        model.cfg = cfg
+
+
+def dropless(cfg):
+    """Config fields that keep every token at every expert it is routed
+    to: capacity C = S."""
+    return ({"capacity_factor": cfg.n_experts / cfg.top_k_experts}
+            if cfg.n_experts else {})
+
+
+def smooth(cfg):
+    """Config fields that make routing continuous: every expert chosen,
+    C = S."""
+    return ({"top_k_experts": cfg.n_experts, "capacity_factor": 1.0}
+            if cfg.n_experts else {})
+
+
+def set_xgate(model, value):
+    with torch.no_grad():
+        for m in model.modules():
+            if hasattr(m, "xgate"):
+                m.xgate.fill_(value)
+
+
+def kind_serve(arch, cut, prompt_len, dev, card_line):
+    """One config of phase 18 served on the card: 8 requests of
+    ``prompt_len`` inputs, 32 generated, with the bf16 cache and, where
+    the config has attention, the int8 cache; timings, the decode gate
+    (dropless for MoE) and its planted faults, one profiled decode step,
+    peak memory and the weight-init seconds."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LanguageModel
+
+    if cut is None:
+        cfg = configs.get_reduced(arch)
+    else:
+        import dataclasses
+        cfg = dataclasses.replace(configs.get(arch), **cut)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = sync_time(lambda: LanguageModel(
+        cfg, device=dev, seed=0, init_on_device=cut is not None))
+    set_xgate(model, KIND_XGATE)
+    n_params = sum(p.numel() for p in model.parameters())
+    B, P, G = LM_BATCH, prompt_len, LM_GEN
+    prompts, ctx, step_embeds = serve.request_inputs(cfg, B, P, G, seed=1)
+    # the gate's inputs: n = P, then forward over n + 1 (attention) or
+    # 2n (an SSM prefill needs whole chunks)
+    m = 2 * P if has_ssm(cfg) else P + 1
+    gate_in, _, _ = serve.request_inputs(cfg, B, m, 2, seed=2)
+    to = (lambda a: torch.as_tensor(a, device=dev))
+    tp, tg = to(prompts), to(gate_in)
+    tctx = None if ctx is None else to(ctx)
+    step_in = (tp[:, -1:] if cfg.embed_input else to(step_embeds[:, :1]))
+    out = {"config": cfg.name, "cut": cut if cut is not None else "reduced",
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": n_params, "prompts": [B, P], "gen": G,
+           "context": None if ctx is None else list(ctx.shape),
+           "xgate": KIND_XGATE if ctx is not None else None,
+           "init_s": init_s, "init_on_device": cut is not None,
+           "card": card_line}
+    kvs = ("bf16", "int8") if cfg.has_attention else ("bf16",)
+    for kv in kvs:
+        def gen_run(g=G):
+            return serve.generate(model, prompts, g, kv, ctx=ctx,
+                                  step_embeds=step_embeds)
+        gen_run(2)                                               # warm-up
+        pre = [sync_time(lambda: model.prefill(tp, P + G, kv,
+                                               ctx=tctx))[1]
+               for _ in range(2)]
+        gens = [sync_time(gen_run) for _ in range(2)]
+        gen = gens[0][0]
+        check(torch.equal(gens[1][0].tokens, gen.tokens),
+              f"{cfg.name} {kv}: repeated generation differs")
+        check(bool(torch.isfinite(gen.logits).all()),
+              f"{cfg.name} {kv}: non-finite logits")
+        total_s = float(np.mean([s for _, s in gens]))
+        prefill_ms = float(np.mean(pre)) * 1e3
+        decode_ms = (total_s * 1e3 - prefill_ms) / (G - 1)
+        atol, rtol = KIND_DECODE_BOUNDS.get(arch, LM_DECODE_BOUNDS)[kv]
+        with config_as(model, **dropless(cfg)):
+            full, aux = model(tg, tctx)
+            want = full[:, P]
+            _, caches, n = model.prefill(tg[:, :P], P + 2, kv, ctx=tctx)
+            lg, _ = model.decode_step(tg[:, P:P + 1], caches, n, ctx=tctx)
+            cons = max_abs(lg[:, 0], want)
+            check(torch.allclose(lg[:, 0], want, atol=atol, rtol=rtol),
+                  f"{cfg.name} {kv}: decode after prefill differs from "
+                  f"forward by {cons} (atol {atol}, rtol {rtol})")
+            controls = decode_controls(model, tg, P, kv, want, atol, rtol,
+                                       ctx=tctx)
+        step = decode_profile(model, tp, kv, step_in, decode_ms, ctx=tctx)
+        out[kv] = {
+            "prefill_ms": prefill_ms, "prefill_all_s": pre,
+            "decode_ms_per_token": decode_ms,
+            "decode_tokens_per_s": B / decode_ms * 1e3,
+            "tokens_per_s": B * G / total_s,
+            "generate_all_s": [s for _, s in gens],
+            "prefill_decode_max_abs": cons,
+            "decode_gate_bounds": [atol, rtol],
+            "forward_aux": float(aux),
+            "decode_gate_controls": controls,
+            "decode_step_profile": step,
+            "logit_scale": float(gen.logits[0].abs().max())}
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_above_resident_bytes"] = out["peak_memory_bytes"] - base
+    del model, full, caches, gen, gens
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("lm kind serve: " + json.dumps(out))
+    return out
+
+
+def blockwise_vs_cpu(card, cpu, inp, ctx):
+    """The card model's forward, block by block against the CPU model's:
+    each CPU block is fed the card's hidden state and, at the MoE, the
+    card's MoE input (``repro_torch.models.moe.moe`` is swapped while the
+    CPU block runs).  Returns the largest block and logit differences and
+    the aux losses' largest relative difference."""
+    from repro_torch.models import moe as moe_lib
+
+    cfg = card.cfg
+    x = card._embed_in(inp)
+    S = x.shape[1]
+    pc, ph = card._positions(0, S), cpu._positions(0, S)
+    cc = card._ctx(ctx)
+    ch = None if cc is None else cc.cpu()
+    orig = moe_lib.moe
+    block_err, aux_rel = 0.0, 0.0
+    for rep_c, rep_h in zip(card.blocks, cpu.blocks):
+        for bc, bh in zip(rep_c, rep_h):
+            seen = []
+
+            def spy(p, h, c):
+                seen.append(h)
+                return orig(p, h, c)
+
+            def fed(p, h, c):
+                return orig(p, seen[0].cpu(), c)
+
+            try:
+                moe_lib.moe = spy
+                y, a, _ = bc.run(x, cfg, ctx=cc, positions=pc)
+                moe_lib.moe = fed
+                yh, ah, _ = bh.run(x.cpu(), cfg, ctx=ch, positions=ph)
+            finally:
+                moe_lib.moe = orig
+            y_cpu = y.cpu().float()
+            check(torch.allclose(y_cpu, yh.float(), atol=KIND_BLOCK_ATOL,
+                                 rtol=KIND_BLOCK_RTOL),
+                  f"{cfg.name}: the card's {bc.kind} block differs from the "
+                  f"CPU's by {max_abs(y_cpu, yh)}")
+            block_err = max(block_err, max_abs(y_cpu, yh))
+            if float(ah):
+                aux_rel = max(aux_rel, abs(float(a) / float(ah) - 1))
+            x = y
+    lg_err = max_abs(card._logits(x).cpu(), cpu._logits(x.cpu()))
+    check(lg_err <= LM_CPU_ATOL, f"{cfg.name}: the card's logits differ from "
+          f"the CPU's by {lg_err} on the same hidden state")
+    check(aux_rel <= 1e-5, f"{cfg.name}: aux loss differs by {aux_rel}")
+    return block_err, lg_err, aux_rel
+
+
+def kinds_vs_cpu(dev):
+    """The card against the port's CPU run of the same weights, on the
+    reduced config of each new family: the forward block by block at the
+    configured routing, then prefill and three decode steps end to end
+    with both caches (MoE configs on their ``smooth`` copy), and the
+    greedy tokens of 8 generated, counted."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LanguageModel
+
+    rows = {}
+    for arch in KIND_CPU_ARCHS:
+        cfg = configs.get_reduced(arch)
+        card = LanguageModel(cfg, device=dev, seed=5)
+        cpu = LanguageModel(cfg, device="cpu", seed=5)
+        set_xgate(card, KIND_XGATE)
+        set_xgate(cpu, KIND_XGATE)
+        n = cfg.ssm_chunk if has_ssm(cfg) else 32
+        inp, ctx, step_embeds = serve.request_inputs(cfg, 2, 2 * n, 8,
+                                                     seed=3)
+        tin = torch.as_tensor(inp)
+        tctx = None if ctx is None else torch.as_tensor(ctx)
+        block_err, lg_err, aux_rel = blockwise_vs_cpu(
+            card, cpu, tin.to(dev), None if tctx is None else tctx.to(dev))
+        row = {"block_max_abs": block_err, "logits_same_state_max_abs":
+               lg_err, "aux_max_rel": aux_rel}
+        kvs = ("bf16", "int8") if cfg.has_attention else ("bf16",)
+        with config_as(card, **smooth(cfg)), config_as(cpu, **smooth(cfg)):
+            for kv in kvs:
+                outs = []
+                for model in (card, cpu):
+                    d = model.device
+                    c = None if tctx is None else tctx.to(d)
+                    lg, caches, _ = model.prefill(tin[:, :n].to(d), n + 4,
+                                                  kv, ctx=c)
+                    steps = [lg]
+                    for i in range(3):
+                        lg, caches = model.decode_step(
+                            tin[:, n + i:n + i + 1].to(d), caches, n + i,
+                            ctx=c)
+                        steps.append(lg)
+                    outs.append(torch.cat(steps, dim=1))
+                errs = max_abs(outs[0].cpu(), outs[1])
+                check(errs <= LM_CPU_ATOL, f"{cfg.name} {kv}: the card's "
+                      f"prefill and decode logits differ from the CPU's by "
+                      f"{errs} (atol {LM_CPU_ATOL})")
+                g_card = serve.generate(card, inp[:, :n], 8, kv, ctx=ctx,
+                                        step_embeds=step_embeds)
+                g_cpu = serve.generate(cpu, inp[:, :n], 8, kv, ctx=ctx,
+                                       step_embeds=step_embeds)
+                same = (g_card.tokens.cpu() == g_cpu.tokens).numpy()
+                row[kv] = {"prefill_decode_max_abs": errs,
+                           "greedy_tokens_equal_cpu": int(same.sum()),
+                           "greedy_tokens": int(same.size)}
+        rows[cfg.name] = row
+        del card, cpu
+    log("lm kinds vs cpu: " + json.dumps(rows))
+    return rows
+
+
+def kinds_phase(dev, card_line):
+    """Phase 18: the five serving runs, then the reduced configs against
+    the CPU.  The LM path runs no kernel of ``repro_torch.kernels``: the
+    phase must book no launch."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    for arch, cut, prompt_len in KIND_RUNS:
+        kind_serve(arch, cut, prompt_len, dev, card_line)
+    kinds_vs_cpu(dev)
+    check(not any(ops.LAUNCHES.values()), f"the LM path launched a search "
+          f"kernel: {dict(ops.LAUNCHES)}")
 
 
 def main() -> int:
@@ -3214,6 +3541,11 @@ def main() -> int:
     tune_phase(repo, q_sets, res, lat, rows, k, reps)
     lm_phase(repo, datasets, smi[0])
     log(f"phase 17: {time.perf_counter() - t17:.1f} s")
+
+    # ---- 18. the LM's MoE, Mamba-2, hybrid, cross and embedding kinds ---
+    t18 = time.perf_counter()
+    kinds_phase(dev, smi[0])
+    log(f"phase 18: {time.perf_counter() - t18:.1f} s")
     rows += j_rows
     log(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))

@@ -2,9 +2,8 @@
 
 A copy of ``repro.configs`` whose modules build the port's own
 :class:`~repro_torch.models.config.ModelConfig`, so that the port imports
-nothing of the JAX package.  The port's model serves the dense kinds
-(``block_pattern=(ATTN,)``); the others raise ``NotImplementedError``
-naming their ROADMAP item (``repro_torch.models.model``).
+nothing of the JAX package.  The port's model
+(``repro_torch.models.model``) serves every one of them.
 
 Every config is from public literature; the ``[source]`` tag from the
 assignment is recorded in each module.  ``get(name)`` returns the full

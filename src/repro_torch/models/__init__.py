@@ -1,3 +1,4 @@
-"""The LM stack of the port: the dense decoder LM (``model``), its layers
-(``layers``), the config (``config``) and the JAX parameter bridge
+"""The LM stack of the port: the decoder LM of every family (``model``),
+its layers (``layers``), the MoE FFN (``moe``), the Mamba-2 block
+(``ssm``), the config (``config``) and the JAX parameter bridge
 (``convert``)."""

@@ -1,5 +1,5 @@
-"""Neural substrate layers: RMSNorm, RoPE, memory-efficient GQA attention,
-SwiGLU MLP, embeddings.
+"""Neural substrate layers: RMSNorm, RoPE, memory-efficient GQA attention
+(self and cross), SwiGLU MLP, embeddings.
 
 Counterpart of ``repro.models.layers``, in plain PyTorch and in the same
 arithmetic.  Parameters are float32 and cast to the activations' dtype
@@ -22,8 +22,24 @@ from __future__ import annotations
 import math
 
 import torch
+from torch import nn
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# init helper
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, shape,
+               scale: float | None = None) -> nn.Parameter:
+    """The JAX package's ``dense_init``: a float32 normal draw times
+    ``scale`` (default 1/sqrt(fan_in), fan_in = shape[0]), drawn from
+    ``gen`` on the generator's own device."""
+    s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    w = torch.randn(shape, generator=gen, device=gen.device)
+    return nn.Parameter(w.mul_(s))
 
 
 # ---------------------------------------------------------------------------
@@ -33,10 +49,17 @@ NEG_INF = -1e30
 
 def rmsnorm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
     """Float32 inside, cast back to x's dtype; ``p.scale`` (d,)."""
+    return rms_scale(x, p.scale, eps)
+
+
+def rms_scale(x: torch.Tensor, scale: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """RMSNorm of x by the bare ``scale`` tensor (the Mamba-2 block keeps
+    its norm's scale as a plain parameter, ``norm_scale``)."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * p.scale.float()).to(x.dtype)
+    return (y * scale.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +240,24 @@ def self_attention_block(p, x, cfg, *, positions, kv_cache=None,
     B, S, H, Dh = out.shape
     y = out.reshape(B, S, H * Dh).to(x.dtype) @ p.wo.to(x.dtype)
     return y, new_kv
+
+
+def cross_attention_block(p, x: torch.Tensor, ctx: torch.Tensor,
+                          cfg) -> torch.Tensor:
+    """Non-causal GQA of x (B, S, d) over a precomputed context ctx
+    (B, T, d) (the vision stub's image embeddings), without RoPE and
+    without a cache: K and V are projected from the context at every call,
+    as the JAX decode step does."""
+    B, S, _ = x.shape
+    T = ctx.shape[1]
+    hd = cfg.resolved_head_dim
+    cd = x.dtype
+    q = (x @ p.wq.to(cd)).reshape(B, S, cfg.n_heads, hd)
+    k = (ctx @ p.wk.to(cd)).reshape(B, T, cfg.n_kv_heads, hd)
+    v = (ctx @ p.wv.to(cd)).reshape(B, T, cfg.n_kv_heads, hd)
+    out = attention(q, k, v, causal=False, q_chunk=cfg.attn_q_chunk,
+                    kv_chunk=cfg.attn_kv_chunk)
+    return out.reshape(B, S, -1).to(cd) @ p.wo.to(cd)
 
 
 # ---------------------------------------------------------------------------

@@ -1,25 +1,28 @@
-"""The decoder LM of the dense families, as an ``nn.Module``.
+"""The unified decoder LM of every family, as an ``nn.Module``.
 
-Counterpart of ``repro.models.model`` for ``block_pattern=(ATTN,)``: the
-trajectory LM ``spadas_trajlm`` and the dense configs (``llama3_8b``,
-``yi_9b``, ...).  The JAX code scans one stacked block over the repeats;
-here the repeats are a ``ModuleList`` with the same parameters, and the
-caches keep the JAX layout: one dict per pattern position whose tensors are
-stacked ``(n_repeats, ...)``.  ``remat`` and ``scan_layers`` are training
-and dry-run knobs: accepted and ignored.
+Counterpart of ``repro.models.model``: dense, MoE (``attn_moe``, Arctic's
+``attn_moe_dense``), Mamba-2 (``mamba``, ``mamba_moe``), hybrid
+(Jamba's pattern), cross-attention to an image context (``cross``) and
+embedding inputs (``embed_input=False``).  The layer stack is
+``n_repeats`` repeats of the config's ``block_pattern``.  The JAX code
+stacks each pattern position's parameters over the repeats and scans;
+here ``blocks[r][i]`` is repeat r's block at pattern position i, with the
+same parameters, and the caches keep the JAX layout: one dict per pattern
+position whose tensors are stacked ``(n_repeats, ...)``.  ``remat`` and
+``scan_layers`` are training and dry-run knobs: accepted and ignored.
 
 Three entry points, as in the JAX package:
 
-  forward      — teacher-forced logits
+  forward      — teacher-forced logits and the summed MoE aux loss
   prefill      — last-token logits + populated caches
   decode_step  — one token against live caches
 
-The caches are written in place (the JAX code returns updated copies):
-``prefill`` and ``decode_step`` return the caches they were given, filled.
-
-Block kinds that are not ported raise ``NotImplementedError`` naming their
-ROADMAP item: MoE (14a), Mamba-2 and the hybrids (14b), cross-attention and
-embedding inputs (14c).
+Inputs are token ids (B, S), or embeddings (B, S, d) where the config has
+``embed_input=False``; a ``cross`` config takes its context ``ctx``
+(B, vision_tokens, d) at every entry point (decode recomputes the
+context's K and V at every step, as the JAX code does).  The caches are
+written in place (the JAX code returns updated copies): ``prefill`` and
+``decode_step`` return the caches they were given, filled.
 """
 from __future__ import annotations
 
@@ -30,117 +33,155 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import (ATTN, ATTN_MOE, ATTN_MOE_DENSE, CROSS,
                                        MAMBA, MAMBA_MOE, ModelConfig)
 
-#: block kinds the port does not serve yet, and their ROADMAP items
-UNPORTED = {
-    ATTN_MOE: "14a (MoE, models/moe.py)",
-    ATTN_MOE_DENSE: "14a (MoE, models/moe.py)",
-    MAMBA: "14b (Mamba-2 and the hybrids, models/ssm.py)",
-    MAMBA_MOE: "14b (Mamba-2 and the hybrids, models/ssm.py)",
-    CROSS: "14c (cross-attention and embedding inputs)",
-}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config the port cannot serve."""
-    for kind in cfg.block_pattern:
-        if kind in UNPORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported "
-                f"(ROADMAP item {UNPORTED[kind]})")
-        if kind != ATTN:
-            raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
-    if not cfg.embed_input:
-        raise NotImplementedError(
-            f"{cfg.name}: embedding inputs (embed_input=False) are not "
-            f"ported (ROADMAP item {UNPORTED[CROSS]})")
-
-
-def _dense(gen, shape, scale: float | None = None) -> nn.Parameter:
-    """The JAX package's ``dense_init``: normal * (scale or 1/sqrt(fan_in)),
-    drawn on the CPU from ``gen`` so that every device gets one set of
-    weights."""
-    s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    return nn.Parameter(torch.randn(shape, generator=gen) * s)
+ATTN_KINDS = (ATTN, ATTN_MOE, ATTN_MOE_DENSE, CROSS)
+SSM_KINDS = (MAMBA, MAMBA_MOE)
+KINDS = ATTN_KINDS + SSM_KINDS
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, d: int):
+    def __init__(self, d: int, dev):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(d))
+        self.scale = nn.Parameter(torch.ones(d, device=dev))
 
 
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, gen):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
-        self.wq = _dense(gen, (d, cfg.n_heads * hd))
-        self.wk = _dense(gen, (d, cfg.n_kv_heads * hd))
-        self.wv = _dense(gen, (d, cfg.n_kv_heads * hd))
-        self.wo = _dense(gen, (cfg.n_heads * hd, d), scale=1.0 / math.sqrt(
-            cfg.n_heads * hd * cfg.n_layers))
+        self.wq = L.dense_init(gen, (d, cfg.n_heads * hd))
+        self.wk = L.dense_init(gen, (d, cfg.n_kv_heads * hd))
+        self.wv = L.dense_init(gen, (d, cfg.n_kv_heads * hd))
+        self.wo = L.dense_init(gen, (cfg.n_heads * hd, d), scale=1.0 / (
+            math.sqrt(cfg.n_heads * hd * cfg.n_layers)))
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, gen):
         super().__init__()
         d, dff = cfg.d_model, cfg.d_ff
-        self.wg = _dense(gen, (d, dff))
-        self.wu = _dense(gen, (d, dff))
-        self.wd = _dense(gen, (dff, d),
-                         scale=1.0 / math.sqrt(dff * cfg.n_layers))
+        self.wg = L.dense_init(gen, (d, dff))
+        self.wu = L.dense_init(gen, (d, dff))
+        self.wd = L.dense_init(gen, (dff, d),
+                               scale=1.0 / math.sqrt(dff * cfg.n_layers))
 
 
 class Embedding(nn.Module):
     def __init__(self, vocab: int, d: int, gen):
         super().__init__()
-        self.table = _dense(gen, (vocab, d), scale=0.02)
+        self.table = L.dense_init(gen, (vocab, d), scale=0.02)
 
 
 class Block(nn.Module):
-    """One ATTN block: pre-norm self-attention, then a pre-norm SwiGLU."""
+    """One pattern position's block of kind ``kind``, with the JAX
+    package's parameters (``_init_block``, drawn in its order): ``ln1``;
+    ``attn`` for the attention kinds; ``xattn``, ``lnx`` and the
+    zero-initialised ``xgate`` for ``cross``; ``mamba`` for the SSM kinds;
+    where d_ff > 0, ``mlp`` (dense kinds and ``attn_moe_dense``), ``moe``
+    (MoE kinds) and ``ln2``."""
 
-    def __init__(self, cfg: ModelConfig, gen):
+    def __init__(self, kind: str, cfg: ModelConfig, gen):
         super().__init__()
-        self.ln1 = RMSNorm(cfg.d_model)
-        self.attn = Attention(cfg, gen)
+        if kind not in KINDS:
+            raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
+        dev = gen.device
+        self.kind = kind
+        self.ln1 = RMSNorm(cfg.d_model, dev)
+        if kind in ATTN_KINDS:
+            self.attn = Attention(cfg, gen)
+        if kind == CROSS:
+            self.xattn = Attention(cfg, gen)
+            self.lnx = RMSNorm(cfg.d_model, dev)
+            self.xgate = nn.Parameter(torch.zeros(1, device=dev))
+        if kind in SSM_KINDS:
+            self.mamba = ssm_lib.Mamba(cfg, gen)
         if cfg.d_ff > 0:
-            self.mlp = MLP(cfg, gen)
-            self.ln2 = RMSNorm(cfg.d_model)
+            if kind in (ATTN, MAMBA, CROSS, ATTN_MOE_DENSE):
+                self.mlp = MLP(cfg, gen)
+            if kind in (ATTN_MOE, MAMBA_MOE, ATTN_MOE_DENSE):
+                self.moe = moe_lib.MoE(cfg, gen)
+            self.ln2 = RMSNorm(cfg.d_model, dev)
 
-    def run(self, x, cfg, *, positions, cache=None, cache_len=None):
-        """Returns (x, new (k, v) or the decode cache tuple)."""
-        h = L.rmsnorm(self.ln1, x, cfg.norm_eps)
-        out, new_kv = L.self_attention_block(
-            self.attn, h, cfg, positions=positions, kv_cache=cache,
-            cache_len=cache_len)
-        x = x + out
+    def run(self, x, cfg, *, ctx, positions, cache=None, r=0,
+            cache_len=None):
+        """``_apply_block``.  Train / prefill (``cache`` None): returns
+        (x, aux, this block's new cache entries: the attention's (k, v),
+        the SSM's (ssm, conv)).  Decode: ``cache`` is the pattern
+        position's cache dict, repeat ``r`` of which is read and written
+        in place."""
+        kind = self.kind
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        new = {}
+        if kind in ATTN_KINDS:
+            h = L.rmsnorm(self.ln1, x, cfg.norm_eps)
+            kv = None
+            if cache is not None:
+                kv = tuple(cache[key][r] for key in
+                           ("k", "v", "k_scale", "v_scale") if key in cache)
+            out, new_kv = L.self_attention_block(
+                self.attn, h, cfg, positions=positions, kv_cache=kv,
+                cache_len=cache_len)
+            x = x + out
+            if cache is None:
+                new["k"], new["v"] = new_kv
+        if kind == CROSS:
+            hx = L.rmsnorm(self.lnx, x, cfg.norm_eps)
+            xo = L.cross_attention_block(self.xattn, hx, ctx, cfg)
+            x = x + torch.tanh(self.xgate).to(x.dtype) * xo
+        if kind in SSM_KINDS:
+            h = L.rmsnorm(self.ln1, x, cfg.norm_eps)
+            st = ((cache["ssm"][r], cache["conv"][r]) if cache is not None
+                  else (None, None))
+            out, (new_ssm, new_conv) = ssm_lib.mamba_block(
+                self.mamba, h, cfg, state=st[0], conv_state=st[1])
+            x = x + out
+            if cache is None:
+                new["ssm"], new["conv"] = new_ssm, new_conv
+            else:
+                cache["ssm"][r] = new_ssm
+                cache["conv"][r] = new_conv
         if cfg.d_ff > 0:
-            x = x + L.mlp(self.mlp, L.rmsnorm(self.ln2, x, cfg.norm_eps))
-        return x, new_kv
+            h2 = L.rmsnorm(self.ln2, x, cfg.norm_eps)
+            if kind in (ATTN, MAMBA, CROSS):
+                x = x + L.mlp(self.mlp, h2)
+            elif kind in (ATTN_MOE, MAMBA_MOE):
+                y, aux = moe_lib.moe(self.moe, h2, cfg)
+                x = x + y
+            else:                                     # ATTN_MOE_DENSE
+                y_moe, aux = moe_lib.moe(self.moe, h2, cfg)
+                x = x + L.mlp(self.mlp, h2) + y_moe
+        return x, aux, new
 
 
 class LanguageModel(nn.Module):
-    """The dense decoder LM of ``cfg`` on ``device`` (the card unless the
-    caller names another), its weights drawn from a ``torch.Generator``
-    seeded with ``seed`` on the CPU in the JAX package's init scales and
-    then moved, so every device gets the same weights.  Parameters are
+    """The decoder LM of ``cfg`` on ``device`` (the card unless the caller
+    names another).  Its weights are drawn in the JAX package's init
+    scales from a ``torch.Generator`` seeded with ``seed``: on the CPU and
+    then moved (the default, so every device gets the same weights), or,
+    with ``init_on_device=True``, by a generator on ``device`` itself
+    (other weights for the same seed; a full-width MoE's billions of
+    normals take seconds there and a minute on the host).  Parameters are
     float32, as the JAX package's; activations are bf16."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
+                 init_on_device: bool = False):
         super().__init__()
-        check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
-        gen = torch.Generator().manual_seed(seed)
-        self.embed = Embedding(cfg.vocab_size, cfg.d_model, gen)
+        gen = torch.Generator(device=dev if init_on_device else "cpu")
+        gen.manual_seed(seed)
+        self.embed = (Embedding(cfg.vocab_size, cfg.d_model, gen)
+                      if cfg.embed_input else None)
         self.head = (None if cfg.tie_embeddings
                      else Embedding(cfg.vocab_size, cfg.d_model, gen))
-        self.final_norm = RMSNorm(cfg.d_model)
-        self.blocks = nn.ModuleList(Block(cfg, gen)
-                                    for _ in range(cfg.n_repeats))
+        self.final_norm = RMSNorm(cfg.d_model, gen.device)
+        self.blocks = nn.ModuleList(
+            nn.ModuleList(Block(kind, cfg, gen) for kind in cfg.block_pattern)
+            for _ in range(cfg.n_repeats))
         self.requires_grad_(False)
         self.to(dev)
 
@@ -152,28 +193,73 @@ class LanguageModel(nn.Module):
 
     def init_cache(self, batch: int, max_len: int,
                    kv_cache_dtype: str | None = None) -> tuple:
-        """Preallocated decode caches in the JAX layout: per pattern
-        position a dict of ``k``, ``v`` (n_repeats, batch, max_len, KH, hd),
-        bf16, or int8 codes with bf16 ``k_scale`` / ``v_scale``
-        (n_repeats, batch, max_len, KH).  ``kv_cache_dtype`` defaults to
-        the config's."""
-        cfg = self.cfg
+        """Preallocated decode caches in the JAX layout, one dict per
+        pattern position, stacked over the repeats: attention positions
+        hold ``k``, ``v`` (n_repeats, batch, max_len, KH, hd), bf16, or
+        int8 codes with bf16 ``k_scale`` / ``v_scale`` (n_repeats, batch,
+        max_len, KH); SSM positions hold ``ssm`` (n_repeats, batch, H, P,
+        N) float32 and ``conv`` (n_repeats, batch, W-1, d_inner + 2N)
+        bf16.  ``kv_cache_dtype`` defaults to the config's."""
+        cfg, dev = self.cfg, self.device
         int8 = (kv_cache_dtype or cfg.kv_cache_dtype) == "int8"
-        shape = (cfg.n_repeats, batch, max_len, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
-        kv_dt = torch.int8 if int8 else torch.bfloat16
-        c = {"k": torch.zeros(shape, dtype=kv_dt, device=self.device),
-             "v": torch.zeros(shape, dtype=kv_dt, device=self.device)}
-        if int8:
-            for key in ("k_scale", "v_scale"):
-                c[key] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
-                                     device=self.device)
-        return (c,)
+        R = cfg.n_repeats
+        caches = []
+        for kind in cfg.block_pattern:
+            c = {}
+            if kind in ATTN_KINDS:
+                shape = (R, batch, max_len, cfg.n_kv_heads,
+                         cfg.resolved_head_dim)
+                kv_dt = torch.int8 if int8 else torch.bfloat16
+                c["k"] = torch.zeros(shape, dtype=kv_dt, device=dev)
+                c["v"] = torch.zeros(shape, dtype=kv_dt, device=dev)
+                if int8:
+                    for key in ("k_scale", "v_scale"):
+                        c[key] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                             device=dev)
+            if kind in SSM_KINDS:
+                c["ssm"] = torch.zeros(
+                    (R, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state), dtype=torch.float32, device=dev)
+                c["conv"] = torch.zeros(
+                    (R, batch, cfg.conv_width - 1,
+                     cfg.d_inner + 2 * cfg.ssm_state), dtype=torch.bfloat16,
+                    device=dev)
+            caches.append(c)
+        return tuple(caches)
 
     # -- the stack --------------------------------------------------------
 
-    def _embed_in(self, tokens: torch.Tensor) -> torch.Tensor:
-        return L.embed(self.embed, tokens.to(self.device)).to(torch.bfloat16)
+    def _embed_in(self, inputs: torch.Tensor) -> torch.Tensor:
+        """Token ids (B, S) through the table, or embeddings (B, S, d)
+        where the config has ``embed_input=False``; bf16 either way."""
+        inputs = inputs.to(self.device)
+        if self.cfg.embed_input:
+            inputs = L.embed(self.embed, inputs)
+        return inputs.to(torch.bfloat16)
+
+    def _ctx(self, ctx):
+        if CROSS not in self.cfg.block_pattern:
+            return None
+        if ctx is None:
+            raise ValueError(f"{self.cfg.name}: a cross-attention config "
+                             f"needs its context ctx")
+        return ctx.to(self.device, torch.bfloat16)
+
+    def _stack(self, x, *, ctx, positions, caches=None, cache_len=None):
+        """Every block in order (repeat by repeat, the pattern's positions
+        within each).  Returns (x, summed aux, per (repeat, position) the
+        blocks' new cache entries)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        new = []
+        for r, rep in enumerate(self.blocks):
+            for i, blk in enumerate(rep):
+                x, a, nc = blk.run(
+                    x, self.cfg, ctx=ctx, positions=positions,
+                    cache=None if caches is None else caches[i], r=r,
+                    cache_len=cache_len)
+                aux = aux + a
+                new.append((r, i, nc))
+        return x, aux, new
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = L.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
@@ -186,64 +272,64 @@ class LanguageModel(nn.Module):
     # -- public entry points ------------------------------------------------
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced logits (B, S, V) float32 for tokens (B, S).  (The
-        JAX forward also returns the MoE aux loss, 0 for the dense kinds.)"""
-        x = self._embed_in(tokens)
-        positions = self._positions(0, x.shape[1])
-        for blk in self.blocks:
-            x, _ = blk.run(x, self.cfg, positions=positions)
-        return self._logits(x)
+    def forward(self, inputs: torch.Tensor, ctx: torch.Tensor | None = None):
+        """Teacher-forced logits (B, S, V) float32 for token ids (B, S) or
+        embeddings (B, S, d), and the MoE aux loss summed over the blocks
+        (float32 scalar; 0 without MoE), as the JAX ``forward``."""
+        x = self._embed_in(inputs)
+        x, aux, _ = self._stack(x, ctx=self._ctx(ctx),
+                                positions=self._positions(0, x.shape[1]))
+        return self._logits(x), aux
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, max_len: int,
-                kv_cache_dtype: str | None = None):
-        """Run the whole prompt tokens (B, S); returns (last-token logits
-        (B, 1, V), caches of ``max_len`` positions holding the prompt's K/V,
-        S).  An int8 cache is quantized before it is stored."""
-        x = self._embed_in(tokens)
+    def prefill(self, inputs: torch.Tensor, max_len: int,
+                kv_cache_dtype: str | None = None,
+                ctx: torch.Tensor | None = None):
+        """Run the whole prompt (token ids (B, S) or embeddings
+        (B, S, d)); returns (last-token logits (B, 1, V), caches of
+        ``max_len`` positions holding the prompt's K/V and the SSM and
+        conv states after it, S).  An int8 cache is quantized before it is
+        stored.  An SSM config needs S a multiple of ``ssm_chunk``."""
+        x = self._embed_in(inputs)
         B, S, _ = x.shape
-        positions = self._positions(0, S)
         caches = self.init_cache(B, max_len, kv_cache_dtype)
-        new_k, new_v = [], []
-        for blk in self.blocks:
-            x, (k, v) = blk.run(x, self.cfg, positions=positions)
-            new_k.append(k)
-            new_v.append(v)
+        x, _, new = self._stack(x, ctx=self._ctx(ctx),
+                                positions=self._positions(0, S))
         logits = self._logits(x[:, -1:, :])
-        _merge_prefill_caches(caches, new_k, new_v)
+        _merge_prefill_caches(caches, new)
         return logits, caches, S
 
     @torch.no_grad()
-    def decode_step(self, tokens: torch.Tensor, caches: tuple,
-                    cache_len: int):
-        """One decode step: tokens (B, 1) at position ``cache_len`` against
-        the caches (bf16 or int8, as they were made), which are updated in
-        place.  Returns (logits (B, 1, V), caches)."""
-        x = self._embed_in(tokens)
-        positions = self._positions(int(cache_len), 1)
-        c = caches[0]
-        int8 = "k_scale" in c
-        for r, blk in enumerate(self.blocks):
-            kv = ((c["k"][r], c["v"][r], c["k_scale"][r], c["v_scale"][r])
-                  if int8 else (c["k"][r], c["v"][r]))
-            x, _ = blk.run(x, self.cfg, positions=positions, cache=kv,
-                             cache_len=int(cache_len))
+    def decode_step(self, inputs: torch.Tensor, caches: tuple,
+                    cache_len: int, ctx: torch.Tensor | None = None):
+        """One decode step: token ids (B, 1), or embeddings (B, 1, d), at
+        position ``cache_len`` against the caches (bf16 or int8, as they
+        were made), which are updated in place.  Returns (logits
+        (B, 1, V), caches)."""
+        x = self._embed_in(inputs)
+        cache_len = int(cache_len)
+        x, _, _ = self._stack(x, ctx=self._ctx(ctx),
+                              positions=self._positions(cache_len, 1),
+                              caches=caches, cache_len=cache_len)
         return self._logits(x), caches
 
 
-def _merge_prefill_caches(caches: tuple, new_k: list, new_v: list) -> None:
-    """Place each repeat's prefill K/V (length S) at the head of the
-    preallocated caches, in place: bf16 as it is, int8 quantized first."""
-    c = caches[0]
-    for r, (k, v) in enumerate(zip(new_k, new_v)):
-        S = k.shape[1]
-        if "k_scale" in c:
-            (kc, ksc), (vc, vsc) = L.quantize_kv(k), L.quantize_kv(v)
-            c["k"][r, :, :S] = kc
-            c["v"][r, :, :S] = vc
-            c["k_scale"][r, :, :S] = ksc
-            c["v_scale"][r, :, :S] = vsc
-        else:
-            c["k"][r, :, :S] = k.to(c["k"].dtype)
-            c["v"][r, :, :S] = v.to(c["v"].dtype)
+def _merge_prefill_caches(caches: tuple, new: list) -> None:
+    """Place each block's prefill K/V (length S) at the head of the
+    preallocated caches, bf16 as it is or quantized to int8 first, and
+    keep its SSM and conv states; in place."""
+    for r, i, nc in new:
+        c = caches[i]
+        if "k" in nc:
+            S = nc["k"].shape[1]
+            if "k_scale" in c:
+                for key in ("k", "v"):
+                    codes, scale = L.quantize_kv(nc[key])
+                    c[key][r, :, :S] = codes
+                    c[f"{key}_scale"][r, :, :S] = scale
+            else:
+                for key in ("k", "v"):
+                    c[key][r, :, :S] = nc[key].to(c[key].dtype)
+        if "ssm" in nc:
+            c["ssm"][r] = nc["ssm"]
+            c["conv"][r] = nc["conv"].to(c["conv"].dtype)

@@ -1119,9 +1119,9 @@ def test_lm_on_card(cuda_device):
     cpu = LanguageModel(cfg, device="cpu", seed=3)
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (4, 40)))
-    full = card(toks.to(cuda_device))
+    full, _ = card(toks.to(cuda_device))
     assert full.device.type == "cuda" and full.dtype == torch.float32
-    np.testing.assert_allclose(full.cpu().numpy(), cpu(toks).numpy(),
+    np.testing.assert_allclose(full.cpu().numpy(), cpu(toks)[0].numpy(),
                                atol=0.03, rtol=0)
     for kv, atol, rtol in (("bf16", 0.15, 0.05), ("int8", 0.2, 0.1)):
         _, caches, n = card.prefill(toks[:, :-1], 48, kv)
@@ -1133,3 +1133,134 @@ def test_lm_on_card(cuda_device):
         assert out.tokens.shape == (4, 8) and out.tokens.is_cuda
         np.testing.assert_allclose(out.logits[0].cpu().numpy(),
                                    want.logits[0].numpy(), atol=0.03, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the LM's MoE, Mamba-2, hybrid, cross-attention and embedding-input kinds
+# (plain PyTorch on the card: no kernel of repro_torch.kernels)
+# ---------------------------------------------------------------------------
+
+LM_KIND_ARCHS = ("grok_1_314b", "arctic_480b", "mamba2_780m",
+                 "jamba_v0_1_52b", "llama3_2_vision_11b", "musicgen_medium")
+
+
+def _smooth(cfg):
+    """Routing made continuous (every expert chosen, no token dropped), so
+    that the card and the CPU cannot pick other experts on a near tie."""
+    import dataclasses
+    if not cfg.n_experts:
+        return cfg
+    return dataclasses.replace(cfg, top_k_experts=cfg.n_experts,
+                               capacity_factor=1.0)
+
+
+def test_moe_combine_on_card_is_the_cpus(cuda_device):
+    """The scatter-add back to the tokens (``index_add_`` in bf16, atomics
+    on the card) with at most two nonzero terms a token: bitwise the CPU's,
+    in either order of the slots, on every run."""
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(5)
+    b, E, C, S, d = 4, 8, 40, 64, 256
+    gi = np.stack([np.stack([rng.permutation(S)[:C] for _ in range(E)])
+                   for _ in range(b)])
+    ye = rng.standard_normal((b, E, C, d), np.float32)
+    seen = np.zeros((b, S), int)
+    for bi, e, c in np.ndindex(b, E, C):
+        seen[bi, gi[bi, e, c]] += 1
+        if seen[bi, gi[bi, e, c]] > 2:
+            ye[bi, e, c] = 0
+    ye_h = torch.from_numpy(ye).bfloat16()
+    gi_h = torch.from_numpy(gi)
+    want = moe.combine(ye_h, gi_h, S)
+    ye_c, gi_c = ye_h.to(cuda_device), gi_h.to(cuda_device)
+    for _ in range(3):
+        assert torch.equal(moe.combine(ye_c, gi_c, S).cpu(), want)
+    assert torch.equal(moe.combine(ye_c.flip(1), gi_c.flip(1), S).cpu(),
+                       want)
+
+
+def test_moe_and_mamba_blocks_on_card(cuda_device):
+    """``moe`` (reduced grok-1, tokens dropped at capacity) and
+    ``mamba_block`` (reduced jamba: a 32-token prefill, then three decode
+    steps) on the card against the CPU on the same weights and inputs:
+    outputs within a bf16 ulp of their largest magnitude (MoE) or 0.03
+    (Mamba), aux loss to 1e-5, SSM states to 1e-4."""
+    from repro_torch import configs
+    from repro_torch.models import moe, ssm
+
+    cfg = configs.get_reduced("grok_1_314b")
+    w = moe.MoE(cfg, torch.Generator().manual_seed(1)).requires_grad_(False)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 64, cfg.d_model), np.float32)).bfloat16()
+    y, aux = moe.moe(w, x, cfg)
+    wc = moe.MoE(cfg, torch.Generator().manual_seed(1)).requires_grad_(
+        False).to(cuda_device)
+    yc, auxc = moe.moe(wc, x.to(cuda_device), cfg)
+    assert yc.is_cuda and yc.dtype == torch.bfloat16
+    torch.testing.assert_close(yc.cpu().float(), y.float(), rtol=0,
+                               atol=2.0 ** -7 * float(y.abs().max()))
+    torch.testing.assert_close(float(auxc), float(aux), rtol=1e-5, atol=0)
+
+    cfg = configs.get_reduced("jamba_v0_1_52b")
+    m = ssm.Mamba(cfg, torch.Generator().manual_seed(2)).requires_grad_(False)
+    mc = ssm.Mamba(cfg, torch.Generator().manual_seed(2)).requires_grad_(
+        False).to(cuda_device)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 35, cfg.d_model), np.float32)).bfloat16()
+    y, (s, c) = ssm.mamba_block(m, x[:, :32], cfg)
+    yc, (sc, cc) = ssm.mamba_block(mc, x[:, :32].to(cuda_device), cfg)
+    for i in range(32, 35):
+        torch.testing.assert_close(yc.cpu().float(), y.float(), atol=0.03,
+                                   rtol=0)
+        torch.testing.assert_close(sc.cpu(), s, atol=1e-4, rtol=1e-4)
+        y, (s, c) = ssm.mamba_block(m, x[:, i:i + 1], cfg, state=s,
+                                    conv_state=c)
+        yc, (sc, cc) = ssm.mamba_block(mc, x[:, i:i + 1].to(cuda_device),
+                                       cfg, state=sc, conv_state=cc)
+
+
+@pytest.mark.parametrize("arch", LM_KIND_ARCHS)
+def test_lm_kind_on_card(cuda_device, arch):
+    """Each new family's reduced config on the card against the same
+    weights on the CPU (the MoE configs with continuous routing; the
+    vision gate at 0.5, since at its init value 0 the cross path is
+    silent): forward logits within 0.03 (0.12 on the 8-layer hybrid, the
+    CPU parity tests' bounds), decode after a one-chunk prefill against
+    forward at the reference's bounds, and ``generate`` with both caches
+    (its prefill logits within the same bound)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LanguageModel
+
+    cfg = _smooth(configs.get_reduced(arch))
+    card = LanguageModel(cfg, device=cuda_device, seed=3)
+    cpu = LanguageModel(cfg, device="cpu", seed=3)
+    with torch.no_grad():
+        for m in (*card.modules(), *cpu.modules()):
+            if hasattr(m, "xgate"):
+                m.xgate.fill_(0.5)
+    inp, ctx, steps = serve.request_inputs(cfg, 2, 64, 4, seed=6)
+    inp_t = torch.as_tensor(inp)
+    ctx_t = None if ctx is None else torch.as_tensor(ctx)
+    ctx_c = None if ctx_t is None else ctx_t.to(cuda_device)
+    bound = 0.12 if arch == "jamba_v0_1_52b" else 0.03
+    full, aux = card(inp_t.to(cuda_device), ctx_c)
+    assert full.is_cuda and full.dtype == torch.float32
+    want, waux = cpu(inp_t, ctx_t)
+    torch.testing.assert_close(full.cpu(), want, atol=bound, rtol=0)
+    torch.testing.assert_close(float(aux), float(waux), rtol=1e-5, atol=0)
+    for kv, atol, rtol in (("bf16", 0.15, 0.05), ("int8", 0.2, 0.1)):
+        _, caches, n = card.prefill(inp_t[:, :32].to(cuda_device), 40, kv,
+                                    ctx=ctx_c)
+        lg, _ = card.decode_step(inp_t[:, 32:33].to(cuda_device), caches, n,
+                                 ctx=ctx_c)
+        torch.testing.assert_close(lg[:, 0], full[:, 32], atol=atol,
+                                   rtol=rtol)
+        out = serve.generate(card, inp[:, :32], 4, kv, ctx=ctx,
+                             step_embeds=steps)
+        ref = serve.generate(cpu, inp[:, :32], 4, kv, ctx=ctx,
+                             step_embeds=steps)
+        assert out.tokens.shape == (2, 4) and out.tokens.is_cuda
+        torch.testing.assert_close(out.logits[0].cpu(), ref.logits[0],
+                                   atol=bound, rtol=0)

@@ -15,6 +15,11 @@ caches) the two may pick either candidate, so there the test compares the
 logits, and it prints how many such steps it met.  On the test seed the
 greedy tokens are equal at every step all the same, and equal to the JAX
 package's own free-running greedy loop; the test holds that too.
+
+The six new families' reduced configs (the MoE ones on their ``smooth``
+copies, ``tests/torch_lm_parity.py``) run ``generate`` on requests drawn
+by ``serve.request_inputs`` against the same JAX loop, logits compared;
+the CLI serves every ``--arch``.
 """
 import dataclasses
 import runpy
@@ -26,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_lm_parity as P
 from repro import configs as jconfigs
 from repro.models import model as M
 from repro_torch import configs
@@ -37,6 +43,8 @@ from repro_torch.models.model import LanguageModel
 
 LOGIT_ATOL = 0.03
 PROMPT, GEN, B = 24, 12, 4
+
+one_torch_thread = P.one_torch_thread
 
 
 @pytest.fixture(scope="module")
@@ -121,6 +129,59 @@ def test_serve_points_example_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "[retrieval] served the same 17 specs" in out
     assert "[generation] spadas-trajlm: 8 prompts of 32" in out
+
+
+@pytest.fixture(scope="module", params=P.NEW_ARCHS)
+def kind_env(request):
+    """A reduced config of each new family with the JAX package's weights
+    (MoE configs on their ``smooth`` copies, tests/torch_lm_parity.py), and
+    its requests drawn by ``serve.request_inputs``."""
+    arch = request.param
+    params, model = P.load(arch, smooth=True)
+    inputs = serve.request_inputs(model.cfg, P.B, P.PROMPT, 6, seed=7)
+    return arch, params, model, inputs
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_generate_every_kind_matches_jax_loop(kind_env, kv):
+    """``generate`` with the context and, for embedding inputs, the
+    per-step embeddings, against a JAX prefill/decode loop fed the port's
+    greedy tokens (or the same step embeddings): each step's logits within
+    the end-to-end bounds of ``tests/test_torch_models.py`` (0.03; 0.12
+    on the 8-layer hybrid, whose jitted reference is noisier), and the
+    tokens are the argmax of the logits."""
+    arch, params, model, (prompts, ctx, step_embeds) = kind_env
+    gen = 6
+    jcfg, _ = P.cfg_pair(arch, kv, smooth=True)
+    out = serve.generate(model, prompts, gen, kv, ctx=ctx,
+                         step_embeds=step_embeds)
+    toks, logits = out.tokens.numpy(), out.logits.numpy()
+    V = model.cfg.vocab_size
+    assert toks.shape == (P.B, gen) and logits.shape == (gen, P.B, V)
+    np.testing.assert_array_equal(toks, logits.argmax(-1).T)
+    lg, caches, cur = P.jax_prefill(jcfg, P.PROMPT + gen)(
+        params, P.jbatch(model.cfg, prompts, ctx))
+    want = [np.asarray(lg[:, -1])]
+    step = P.jax_decode(jcfg)
+    for i in range(gen - 1):
+        x = (toks[:, i:i + 1].astype(np.int32) if model.cfg.embed_input
+             else step_embeds[:, i:i + 1])
+        lg, caches = step(params, jnp.asarray(x), caches,
+                          jnp.int32(int(cur) + i), P.jctx(ctx))
+        want.append(np.asarray(lg[:, -1]))
+    atol = 0.12 if arch == "jamba_v0_1_52b" else LOGIT_ATOL
+    np.testing.assert_allclose(logits, np.stack(want), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_serve_main_serves_every_arch(arch, capsys):
+    """The CLI serves every config on the CPU, reduced (a prompt of one
+    SSM chunk)."""
+    seqs = serve.main(["--device", "cpu", "--arch", arch, "--requests", "2",
+                       "--prompt-len", "32", "--gen", "3"])
+    assert seqs.shape == (2, 3)
+    name = configs.get_reduced(arch).name
+    assert f"[serve] {name} on cpu: 2 requests" in capsys.readouterr().out
 
 
 def test_generate_on_the_default_device_needs_the_card():
