@@ -187,7 +187,30 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      weights: every block on the card's hidden state (and the MoE on the
      card's MoE input), prefill and decode logits end to end (MoE
      routing made continuous), greedy tokens counted.  The phase books
-     no launch of the six kernels.
+     no launch of the six kernels;
+ 19. training: the full ``spadas_trajlm`` (12 x 768, 116,460,288
+     parameters, float32 states) trained by
+     ``repro_torch.launch.train.run`` at its defaults (batch 8 x seq 256,
+     lr 3e-4 after 20 warm-up steps), its data curated on the card as the
+     trainer does, for 60 steps with an async checkpoint every 30: step ms
+     (median, spread), tokens per second, peak memory, the model-FLOP
+     share of a step against the bf16 peak, one step under
+     torch.profiler (device operations, busy ms, idle share); gates: the
+     trainer's curation launches ``bound_grid`` and ``hausdorff_grid``
+     (booked as ``train_launches``), while the train steps launch no
+     kernel (the run resumed for 10 steps launches what the 60-step run
+     did, and every other step launches nothing), the losses finite and
+     the mean of the last 10 below the first 10's, one step of the same
+     weights on a 2 x 256 batch against the port's CPU run
+     (``TRAIN_CPU_BOUNDS``), the run resumed from the step-30 checkpoint
+     (by the trainer's ``--resume`` and by a restore into a fresh model
+     and optimizer) equal to the uninterrupted run's next 10 losses within
+     ``RESUME_RTOL``, a gate that must fail on two planted faults (the
+     restored moments zeroed; the pipeline cursor dropped); int8 states
+     over the first 10 steps (their bytes a parameter, the losses within
+     ``INT8_LOSS_ATOL`` of the float32 run's); mamba2_780m whole at full
+     width with int8 states, 3 steps on one batch, the second loss below
+     the first.
 
 The second-to-last line is the kernel table as JSON (each row's
 ``launches`` from the local path, ``sharded_launches`` per phase-14 path
@@ -196,7 +219,8 @@ The second-to-last line is the kernel table as JSON (each row's
 per phase-16 path; ``bound_matrices`` and ``set_intersect`` add
 ``at_path_shapes``, their times at phase 16's shapes; the three swept
 kernels add ``variants``, each launch shape's time at phase 3's shapes,
-and ``tuned``, the shape phase 17 installed), the last line
+and ``tuned``, the shape phase 17 installed; every local row adds
+``train_launches``, its launches in phase 19's training run), the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
@@ -3167,6 +3191,372 @@ def kinds_phase(dev, card_line):
           f"kernel: {dict(ops.LAUNCHES)}")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training: the LM trained on data curated on the card
+# ---------------------------------------------------------------------------
+
+#: the trainer's defaults (``launch/train.py``) at the full spadas_trajlm:
+#: batch 8 x seq 256, a lake of 256 trajectories (``examples/train_lm.py``)
+#: curated to k = 64; 60 steps with an async checkpoint every 30
+TRAIN_ARGS = ["--arch", "spadas_trajlm", "--batch", "8", "--seq", "256",
+              "--lake-size", "256", "--log-every", "20"]
+TRAIN_STEPS = 60
+TRAIN_CKPT_AT = 30
+TRAIN_RESUMED = 10
+#: steps left out of the step-time statistics (first launches, cuBLAS
+#: heuristics, the allocator's first growth)
+TRAIN_WARM = 5
+#: the published dense bf16 peak of one H100 SXM (989 TFLOP/s at 700 W)
+PEAK_BF16 = 989e12
+#: one step of the same weights on the card and on the CPU, 2 x 256
+#: tokens, lr 1e-3 after one warm-up step, float32 states: both round bf16
+#: products of float32 sums taken in another order (the CPU tests' bounds
+#: for the port against the JAX package, tests/torch_train_parity.py):
+#: loss within 2e-3, grad norm within 2 %, every parameter within 2 lr
+#: (Adam moves each by about lr; a gradient near zero may flip its sign)
+#: and at most 1.5 % of them past 0.1 lr, the first moments within 5 % of
+#: their norm
+TRAIN_CPU_BATCH = 2
+TRAIN_CPU_LR = 1e-3
+TRAIN_CPU_BOUNDS = {"loss_atol": 2e-3, "grad_norm_rtol": 0.02,
+                    "param_lr": 2.0 * (1 + 1e-3), "over_share": 0.015,
+                    "m_rel": 0.05}
+#: the resumed run's losses against the uninterrupted run's (the JAX
+#: package's crash-resume bound; bitwise is not asked: the gathers'
+#: backward accumulates with atomics on the card)
+RESUME_RTOL = 1e-5
+#: int8 states against float32 over the first 10 steps of the same
+#: batches and weights: each loss within 0.05 (the warm-up keeps the
+#: updates small; 0.0179 seen at step 9, H100 80GB HBM3, 700 W; 0.0013 on
+#: the reduced config on the CPU)
+INT8_STEPS = 10
+INT8_LOSS_ATOL = 0.05
+#: mamba2_780m whole, int8 states, lr 1e-3 after one warm-up step, 3 steps
+#: on one batch of 2 x 256 (one SSD chunk), its config's remat on: the
+#: reference's check (tests/test_models_smoke.py::test_train_step)
+MAMBA_BATCH = (2, 256)
+
+
+def model_flops(cfg, n_params, B, S):
+    """The step's model FLOPs: 6 N per token (forward and backward of the
+    products) and the attention's two S x S products per layer (forward 2,
+    backward 4 of 2 B S^2 d each; the port computes the whole masked
+    square)."""
+    return 6 * n_params * B * S + 12 * cfg.n_layers * B * S * S * cfg.d_model
+
+
+def state_bytes(opt):
+    """Bytes of the optimizer's moments."""
+    from repro_torch.train.optimizer import QTensor
+
+    return sum(x.size_bytes() if isinstance(x, QTensor)
+               else x.numel() * x.element_size()
+               for tree in (opt.m, opt.v) for x in tree.values())
+
+
+def step_gaps(card_state, cpu_state, lr):
+    """Card against CPU after one step: the largest parameter gap in
+    units of lr, the share of elements past 0.1 lr, and the first
+    moments' relative gap (norm over the whole tree)."""
+    worst, over, n, num, den = 0.0, 0, 0, 0.0, 0.0
+    cpu_p = dict(cpu_state.params.named_parameters())
+    for name, p in card_state.params.named_parameters():
+        gap = (p.detach().cpu().double() - cpu_p[name].detach().double()
+               ).abs() / lr
+        worst = max(worst, float(gap.max()))
+        over += int((gap > 0.1).sum())
+        n += gap.numel()
+        a, b = card_state.opt.m[name].cpu().double(), \
+            cpu_state.opt.m[name].double()
+        num += float(((a - b) ** 2).sum())
+        den += float((b ** 2).sum())
+    return worst, over / n, (num / den) ** 0.5
+
+
+def train_vs_cpu(cfg, batch, dev):
+    """One step of the same weights (seed 1, drawn on the CPU and copied
+    to the card) on the card and on the CPU, on the first rows of a
+    pipeline batch."""
+    import copy
+
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    b = {k: v[:TRAIN_CPU_BATCH] for k, v in batch.items()}
+    opt = opt_lib.OptConfig(lr=TRAIN_CPU_LR, warmup_steps=1)
+    cpu_model = LanguageModel(cfg, device="cpu", seed=1)
+    models = {"card": copy.deepcopy(cpu_model).to(dev), "cpu": cpu_model}
+    out, states = {}, []
+    for where, model in models.items():
+        st = ts.train_state_for(model, opt)
+        (st, m), secs = sync_time(lambda: ts.make_train_step(cfg, opt)(st, b))
+        states.append(st)
+        out[where] = {"loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]), "step_s": secs}
+    worst, over, m_rel = step_gaps(*states, TRAIN_CPU_LR)
+    bd = TRAIN_CPU_BOUNDS
+    loss_gap = abs(out["card"]["loss"] - out["cpu"]["loss"])
+    gn_rel = abs(out["card"]["grad_norm"] / out["cpu"]["grad_norm"] - 1)
+    out.update({"tokens": [TRAIN_CPU_BATCH, b["tokens"].shape[1]],
+                "loss_gap": loss_gap, "grad_norm_rel": gn_rel,
+                "param_gap_lr": worst, "share_past_0.1_lr": over,
+                "m_rel": m_rel, "bounds": bd})
+    check(loss_gap <= bd["loss_atol"] and gn_rel <= bd["grad_norm_rtol"]
+          and worst <= bd["param_lr"] and over <= bd["over_share"]
+          and m_rel <= bd["m_rel"],
+          f"train step on the card differs from the CPU's: {out}")
+    return out
+
+
+def resume_losses(ckpt_dir, step, cfg, opt, docs, fresh, fault=None):
+    """Restore ``step`` into ``fresh`` (a model and optimizer of other
+    weights; the restore overwrites it) and take ``TRAIN_RESUMED`` steps
+    from the restored pipeline cursor; ``fault`` plants a fault the gate
+    must catch: "moments" zeroes the restored moments, "cursor" restarts
+    the pipeline at the beginning."""
+    from repro_torch.checkpoint import ckpt as ckpt_lib
+    from repro_torch.data import tokens as tok
+    from repro_torch.train import train_step as ts
+
+    state, extra = ckpt_lib.restore(ckpt_dir, fresh, step=step)
+    check(int(state.step) == step and extra["step"] == step,
+          f"restored step {int(state.step)}, not {step}")
+    if fault == "moments":
+        for tree in (state.opt.m, state.opt.v):
+            for x in tree.values():
+                x.zero_()
+    cursor = (None if fault == "cursor" else
+              tok.PipelineState.from_dict(extra["pipeline"]))
+    pipe = tok.TokenPipeline(docs, 256, 8, seed=0, state=cursor)
+    step_fn = ts.make_train_step(cfg, opt)
+    losses = []
+    for _ in range(TRAIN_RESUMED):
+        state, m = step_fn(state, pipe.next_batch())
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def resume_gate(got, want):
+    return bool(np.allclose(got, want, rtol=RESUME_RTOL, atol=0))
+
+
+def mamba_train(dev, card_line):
+    """mamba2_780m whole at full width (weights drawn on the card), int8
+    states: 3 steps on one batch, the second's loss below the first's."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    cfg = configs.get("mamba2_780m")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = LanguageModel(cfg, device=dev, seed=0, init_on_device=True)
+    opt = opt_lib.OptConfig(lr=1e-3, warmup_steps=1, state_dtype="int8")
+    state = ts.train_state_for(model, opt)
+    B, S = MAMBA_BATCH
+    rng = np.random.default_rng(3)
+    batch = {k: rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
+             for k in ("tokens", "labels")}
+    step_fn = ts.make_train_step(cfg, opt)
+    losses, secs = [], []
+    for _ in range(3):
+        (state, m), s = sync_time(lambda: step_fn(state, batch))
+        losses.append(float(m["loss"]))
+        secs.append(s)
+    check(all(np.isfinite(losses)), f"mamba2_780m: losses {losses}")
+    check(losses[1] < losses[0], f"mamba2_780m: the second step's loss "
+          f"{losses[1]} is not below the first's {losses[0]}")
+    n_params = sum(p.numel() for p in model.parameters())
+    out = {"config": cfg.name, "params": n_params, "layers": cfg.n_layers,
+           "remat": cfg.remat, "batch": [B, S], "state_dtype": "int8",
+           "losses": losses, "step_s": secs,
+           "state_bytes_per_param": state_bytes(state.opt) / n_params,
+           "peak_above_resident_bytes":
+               torch.cuda.max_memory_allocated() - base,
+           "card": card_line}
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(dev, rows, card_line):
+    """Phase 19.  The full spadas_trajlm trained by
+    ``launch.train.run`` (curation on the card, 60 steps, an async
+    checkpoint every 30), its curation's kernel launches booked as
+    ``train_launches``, one step profiled, the card against the CPU, the
+    resume gate with its planted faults, int8 states, and mamba2_780m's
+    full-width steps.  The train steps launch none of the six kernels: the
+    resumed run (10 steps) launches what the 60-step run did, and every
+    step taken outside ``launch.train`` launches nothing."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.data import tokens as tok
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get("spadas_trajlm"), remat=False)
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size) == (12, 768, 4160),
+          "spadas_trajlm: not the full config")
+    opt = opt_lib.OptConfig(lr=3e-4, warmup_steps=20)   # the trainer's
+    B, S = 8, 256
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_train_"))
+    try:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        run, run_s = sync_time(lambda: train.run(
+            TRAIN_ARGS + ["--steps", str(TRAIN_STEPS), "--ckpt-every",
+                          str(TRAIN_CKPT_AT), "--ckpt-dir", str(tmp / "a")]))
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - base
+        for name in ("bound_grid", "hausdorff_grid"):
+            check(launches[name] > 0, f"the trainer's curation launched no "
+                  f"{name}")
+        losses = run.losses
+        check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+              f"training losses {losses}")
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        check(last < first, f"the loss did not fall: mean of the first 10 "
+              f"{first}, of the last 10 {last}")
+        model = run.state.params
+        n_params = sum(p.numel() for p in model.parameters())
+        check(n_params == cfg.param_count() == 116_460_288,
+              f"parameters {n_params}")
+        steady = np.asarray(run.step_s[TRAIN_WARM:])
+        step_ms = float(np.median(steady)) * 1e3
+        flops = model_flops(cfg, n_params, B, S)
+        ops.reset_launches()
+        step_fn = ts.make_train_step(cfg, opt)
+        batch = run.pipeline.next_batch()
+        state = run.state
+        state, _ = step_fn(state, batch)                 # warm, unprofiled
+
+        def one_step():
+            nonlocal state
+            state, m = step_fn(state, batch)
+            return m["loss"]
+
+        per_name, busy_ms, wall_ms, n_ops = device_profile(one_step)
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+        out = {
+            "config": cfg.name, "params": n_params, "batch": [B, S],
+            "steps": TRAIN_STEPS, "lr": opt.lr, "warmup": opt.warmup_steps,
+            "run_s": run_s, "setup_s": run_s - float(sum(run.step_s)),
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "loss_mean_first10": first, "loss_mean_last10": last,
+            "step_ms_median": step_ms,
+            "step_ms_p10_p90": [float(np.percentile(steady, q)) * 1e3
+                                for q in (10, 90)],
+            "step_ms_min_max": [float(steady.min()) * 1e3,
+                                float(steady.max()) * 1e3],
+            "first_steps_ms": [s * 1e3 for s in run.step_s[:TRAIN_WARM]],
+            "tokens_per_s": B * S / step_ms * 1e3,
+            "model_flops_per_step": flops,
+            "bound_ms_bf16": flops / PEAK_BF16 * 1e3,
+            "model_flop_share": flops / (step_ms * 1e-3) / PEAK_BF16,
+            "peak_above_resident_bytes": peak,
+            "state_bytes_per_param": state_bytes(state.opt) / n_params,
+            "step_profile": {"device_ops": n_ops, "device_busy_ms": busy_ms,
+                             "profiled_wall_ms": wall_ms,
+                             "idle_share_of_step": 1.0 - busy_ms / step_ms,
+                             "top_ops_ms": {k[:80]: v for k, v in top}},
+            "launches": {k: v for k, v in launches.items() if v},
+            "card": card_line}
+        log("train run: " + json.dumps(out))
+        docs = run.pipeline.docs
+        del run, state, model
+        for r in rows:
+            r["train_launches"] = launches[r["name"]]
+
+        # card against the CPU, one step of the same weights
+        log("train card vs cpu: " + json.dumps(train_vs_cpu(cfg, batch,
+                                                            dev)))
+        step_launches = dict(ops.LAUNCHES)
+
+        # resume: launch.train from the step-30 checkpoint (its curation
+        # launches what the 60-step run's did), then the gate's own loop
+        # with and without a planted fault
+        name = cfg.name
+        shutil.copytree(tmp / "a" / name / f"step_{TRAIN_CKPT_AT:08d}",
+                        tmp / "b" / name / f"step_{TRAIN_CKPT_AT:08d}")
+        want = losses[TRAIN_CKPT_AT:TRAIN_CKPT_AT + TRAIN_RESUMED]
+        ops.reset_launches()
+        resumed, resume_s = sync_time(lambda: train.main(
+            TRAIN_ARGS + ["--steps", str(TRAIN_CKPT_AT + TRAIN_RESUMED),
+                          "--ckpt-every", str(TRAIN_STEPS), "--resume",
+                          "--ckpt-dir", str(tmp / "b")]))
+        check(dict(ops.LAUNCHES) == launches, f"the resumed run (10 steps) "
+              f"launched {dict(ops.LAUNCHES)}, the 60-step run {launches}: "
+              f"the train steps must launch no kernel")
+        ops.reset_launches()
+        fresh = ts.train_state_for(LanguageModel(
+            cfg, device=dev, seed=7, init_on_device=True), opt)
+        gate = {"launch_train": resumed}
+        for fault in (None, "moments", "cursor"):
+            gate[fault or "restored"] = resume_losses(
+                tmp / "a" / name, TRAIN_CKPT_AT, cfg, opt, docs, fresh,
+                fault)
+        del fresh
+        rel = {k: float(np.max(np.abs(np.asarray(v) / np.asarray(want)
+                                      - 1))) for k, v in gate.items()}
+        check(resume_gate(resumed, want) and
+              resume_gate(gate["restored"], want),
+              f"resumed losses differ from the uninterrupted run's: {rel}")
+        for fault in ("moments", "cursor"):
+            check(not resume_gate(gate[fault], want), f"the resume gate "
+                  f"passes a planted fault ({fault}): {rel}")
+        log("train resume: " + json.dumps({
+            "from_step": TRAIN_CKPT_AT, "steps": TRAIN_RESUMED,
+            "uninterrupted": want, "max_rel_gap": rel,
+            "rtol": RESUME_RTOL, "launch_train_resume_s": resume_s,
+            **gate}))
+
+        # int8 states on the same weights and batches as the run's first
+        # ten steps
+        opt8 = dataclasses.replace(opt, state_dtype="int8")
+        st8 = ts.init_train_state(cfg, opt8, device=dev, seed=0)
+        pipe = tok.TokenPipeline(docs, S, B, seed=0)
+        step8 = ts.make_train_step(cfg, opt8)
+        l8 = []
+        for _ in range(INT8_STEPS):
+            st8, m = step8(st8, pipe.next_batch())
+            l8.append(float(m["loss"]))
+        gap8 = float(np.max(np.abs(np.asarray(l8)
+                                   - np.asarray(losses[:INT8_STEPS]))))
+        b8 = state_bytes(st8.opt)
+        check(gap8 <= INT8_LOSS_ATOL, f"int8 states: losses {l8} against "
+              f"float32 {losses[:INT8_STEPS]}")
+        log("train int8: " + json.dumps({
+            "steps": INT8_STEPS, "losses": l8,
+            "fp32_losses": losses[:INT8_STEPS], "max_loss_gap": gap8,
+            "atol": INT8_LOSS_ATOL, "state_bytes": b8,
+            "state_bytes_per_param": b8 / n_params,
+            "fp32_state_bytes_per_param": 8.0}))
+        del st8
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    log("train mamba2: " + json.dumps(mamba_train(dev, card_line)))
+    for counts in (step_launches, dict(ops.LAUNCHES)):
+        check(not any(counts.values()), f"the train steps launched a "
+              f"search kernel: {counts}")
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -3546,6 +3936,9 @@ def main() -> int:
     t18 = time.perf_counter()
     kinds_phase(dev, smi[0])
     log(f"phase 18: {time.perf_counter() - t18:.1f} s")
+
+    # ---- 19. training: the LM trained on data curated on the card -------
+    train_phase(dev, rows, smi[0])
     rows += j_rows
     log(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))

@@ -1,8 +1,10 @@
 """Model configuration for the assigned architecture pool.
 
 A copy of ``repro.models.config`` (pure Python), kept in the port so that
-it imports nothing of the JAX package.  ``remat`` and ``scan_layers`` are
-training and dry-run knobs that the port accepts and ignores.
+it imports nothing of the JAX package.  ``remat`` recomputes each repeat
+of the pattern in the backward pass when the model trains
+(``LanguageModel.forward``); ``scan_layers`` is a dry-run knob that the
+port accepts and ignores.
 
 One frozen dataclass covers dense / MoE / SSM / hybrid / audio / vlm
 families.  Heterogeneous stacks (jamba, vision) are expressed as a

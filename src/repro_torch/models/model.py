@@ -8,8 +8,16 @@ embedding inputs (``embed_input=False``).  The layer stack is
 stacks each pattern position's parameters over the repeats and scans;
 here ``blocks[r][i]`` is repeat r's block at pattern position i, with the
 same parameters, and the caches keep the JAX layout: one dict per pattern
-position whose tensors are stacked ``(n_repeats, ...)``.  ``remat`` and
-``scan_layers`` are training and dry-run knobs: accepted and ignored.
+position whose tensors are stacked ``(n_repeats, ...)``.
+
+Serving models are frozen (``requires_grad`` off, as ``__init__`` leaves
+them); the trainer (:mod:`repro_torch.train.train_step`) turns gradients
+on and runs ``forward`` under autograd.  There ``remat`` is honoured as
+the JAX package's ``jax.checkpoint(body, policy=nothing_saveable)`` over
+one scan body: each repeat of the pattern runs under
+``torch.utils.checkpoint`` and is recomputed in the backward pass.
+``scan_layers`` is a dry-run knob, accepted and ignored: eager PyTorch has
+no scan, so the repeats always run as a Python loop.
 
 Three entry points, as in the JAX package:
 
@@ -30,6 +38,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -245,6 +254,14 @@ class LanguageModel(nn.Module):
                              f"needs its context ctx")
         return ctx.to(self.device, torch.bfloat16)
 
+    def _repeat(self, rep, x, aux, ctx, positions):
+        """One repeat of the pattern in training (no caches): the JAX
+        scan body, aux carried through it."""
+        for blk in rep:
+            x, a, _ = blk.run(x, self.cfg, ctx=ctx, positions=positions)
+            aux = aux + a
+        return x, aux
+
     def _stack(self, x, *, ctx, positions, caches=None, cache_len=None):
         """Every block in order (repeat by repeat, the pattern's positions
         within each).  Returns (x, summed aux, per (repeat, position) the
@@ -271,14 +288,25 @@ class LanguageModel(nn.Module):
 
     # -- public entry points ------------------------------------------------
 
-    @torch.no_grad()
     def forward(self, inputs: torch.Tensor, ctx: torch.Tensor | None = None):
         """Teacher-forced logits (B, S, V) float32 for token ids (B, S) or
         embeddings (B, S, d), and the MoE aux loss summed over the blocks
-        (float32 scalar; 0 without MoE), as the JAX ``forward``."""
+        (float32 scalar; 0 without MoE), as the JAX ``forward``.  Records
+        the autograd graph where the parameters require gradients (the
+        trainer's); with ``cfg.remat`` each repeat is then recomputed in
+        the backward pass instead of keeping its activations."""
         x = self._embed_in(inputs)
-        x, aux, _ = self._stack(x, ctx=self._ctx(ctx),
-                                positions=self._positions(0, x.shape[1]))
+        ctx = self._ctx(ctx)
+        positions = self._positions(0, x.shape[1])
+        remat = (self.cfg.remat and torch.is_grad_enabled()
+                 and self.final_norm.scale.requires_grad)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for rep in self.blocks:
+            if remat:
+                x, aux = checkpoint(self._repeat, rep, x, aux, ctx,
+                                    positions, use_reentrant=False)
+            else:
+                x, aux = self._repeat(rep, x, aux, ctx, positions)
         return self._logits(x), aux
 
     @torch.no_grad()

@@ -1264,3 +1264,143 @@ def test_lm_kind_on_card(cuda_device, arch):
         assert out.tokens.shape == (2, 4) and out.tokens.is_cuda
         torch.testing.assert_close(out.logits[0].cpu(), ref.logits[0],
                                    atol=bound, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# training (autograd over the eager modules, the optimizer, checkpoints;
+# no kernel of repro_torch.kernels)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("spadas_trajlm", "llama3_8b", "grok_1_314b", "arctic_480b",
+               "mamba2_780m", "jamba_v0_1_52b", "llama3_2_vision_11b",
+               "musicgen_medium")
+#: card against CPU after one step, the CPU tests' bounds for the port
+#: against the JAX package (tests/torch_train_parity.py), jamba's 8 hybrid
+#: layers at its looser ones: loss, grad norm (relative), parameters in
+#: units of lr, the share of elements past 0.1 lr, the first moments'
+#: relative gap
+TRAIN_STEP_BOUNDS = {"default": (2e-3, 0.02, 2.002, 0.015, 0.05),
+                     "jamba_v0_1_52b": (2e-3, 0.02, 2.002, 0.06, 0.2)}
+
+
+def _train_batch(cfg, B, S, seed=5):
+    rng = np.random.default_rng(seed)
+    b = {"labels": rng.integers(0, cfg.vocab_size, (B, S))}
+    b["labels"][0, :5] = -1
+    if cfg.embed_input:
+        b["tokens"] = rng.integers(0, cfg.vocab_size, (B, S))
+    else:
+        b["embeds"] = rng.standard_normal((B, S, cfg.d_model), np.float32)
+    if cfg.vision_tokens:
+        b["image_embeds"] = rng.standard_normal(
+            (B, cfg.vision_tokens, cfg.d_model), np.float32)
+    return b
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_card(cuda_device, arch):
+    """One train step of each family's reduced config (MoE routing made
+    continuous, the vision gates at 0.5) on the card against the same
+    weights on the CPU, float32 states, lr 1e-3 after one warm-up step."""
+    from repro_torch import configs
+    from repro_torch.train import optimizer, train_step
+
+    cfg = _smooth(configs.get_reduced(arch))
+    opt = optimizer.OptConfig(lr=1e-3, warmup_steps=1)
+    states, metrics = [], []
+    for dev in (cuda_device, torch.device("cpu")):
+        st = train_step.init_train_state(cfg, opt, device=dev, seed=3)
+        with torch.no_grad():
+            for m in st.params.modules():
+                if hasattr(m, "xgate"):
+                    m.xgate.fill_(0.5)
+        st, m = train_step.make_train_step(cfg, opt)(
+            st, _train_batch(cfg, 2, 64))
+        states.append(st)
+        metrics.append({k: float(v) for k, v in m.items()})
+    loss_atol, gn_rtol, lr_bound, over_share, m_rel = TRAIN_STEP_BOUNDS.get(
+        arch, TRAIN_STEP_BOUNDS["default"])
+    card, cpu = metrics
+    assert abs(card["loss"] - cpu["loss"]) <= loss_atol
+    assert abs(card["grad_norm"] / cpu["grad_norm"] - 1) <= gn_rtol
+    np.testing.assert_allclose(card["aux"], cpu["aux"], rtol=1e-5)
+    cpu_p = dict(states[1].params.named_parameters())
+    over = n = 0
+    num = den = 0.0
+    for name, p in states[0].params.named_parameters():
+        assert p.is_cuda and torch.isfinite(p).all()
+        gap = (p.detach().cpu().double() - cpu_p[name].detach().double()
+               ).abs() / 1e-3
+        assert float(gap.max()) <= lr_bound, name
+        over += int((gap > 0.1).sum())
+        n += gap.numel()
+        a = states[0].opt.m[name].cpu().double()
+        b = states[1].opt.m[name].double()
+        num += float(((a - b) ** 2).sum())
+        den += float((b ** 2).sum())
+    assert over / n <= over_share and (num / den) ** 0.5 <= m_rel
+
+
+def test_quantize_on_card_is_the_cpus(cuda_device):
+    """The int8 quantizers on the card give the CPU's bits (the divisions
+    are true divisions there too, no reciprocal)."""
+    from repro_torch.train import compression, optimizer
+
+    rng = np.random.default_rng(8)
+    for shape in ((5,), (64, 256), (3, 40, 70), (2, 1, 513)):
+        x = torch.from_numpy((rng.standard_normal(shape)
+                              * rng.uniform(1e-3, 10)).astype(np.float32))
+        for block in (64, 256):
+            want = optimizer._quantize(x, block)
+            got = optimizer._quantize(x.to(cuda_device), block)
+            assert torch.equal(got.codes.cpu(), want.codes)
+            assert _bits_equal(got.scales.cpu(), want.scales)
+            assert _bits_equal(optimizer._dequantize(got).cpu(),
+                               optimizer._dequantize(want))
+        codes, scales = compression.quantize_int8(x.to(cuda_device))
+        wc, ws = compression.quantize_int8(x)
+        assert torch.equal(codes.cpu(), wc) and _bits_equal(scales.cpu(), ws)
+
+
+def test_async_snapshot_from_card(cuda_device, tmp_path):
+    """An AsyncSaver snapshot of a state on the card: two more steps are
+    taken at once, yet the checkpoint holds the step-2 values, and it
+    restores onto the card and onto the CPU."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.models import convert
+    from repro_torch.train import optimizer, train_step
+
+    cfg = configs.get_reduced("spadas_trajlm")
+    opt = optimizer.OptConfig(lr=1e-3, warmup_steps=1, state_dtype="int8",
+                              q_block=64)
+    st = train_step.init_train_state(cfg, opt, device=cuda_device, seed=2,
+                                     compress=True)
+    step = train_step.make_train_step(cfg, opt, compress=True)
+    batch = _train_batch(cfg, 2, 64)
+    for _ in range(2):
+        st, _ = step(st, batch)
+
+    def host(leaves):
+        return {k: ((v.codes.cpu().clone(), v.scales.cpu().clone())
+                    if isinstance(v, optimizer.QTensor)
+                    else v.detach().cpu().clone()) for k, v in leaves.items()}
+
+    want = host(convert.state_leaves(st))
+    saver = ckpt.AsyncSaver()
+    saver.save(tmp_path, 2, st, extra={"step": 2})
+    for _ in range(2):
+        st, _ = step(st, batch)
+    saver.wait()
+    for dev in (cuda_device, torch.device("cpu")):
+        fresh = train_step.init_train_state(cfg, opt, device="cpu", seed=9,
+                                            compress=True)
+        restored, extra = ckpt.restore(tmp_path, fresh, devices=dev)
+        assert extra == {"step": 2}
+        assert restored.params.device.type == dev.type
+        got = host(convert.state_leaves(restored))
+        assert got.keys() == want.keys()
+        for k, w in want.items():
+            for a, b in zip(got[k] if isinstance(w, tuple) else (got[k],),
+                            w if isinstance(w, tuple) else (w,)):
+                assert torch.equal(a, b), k

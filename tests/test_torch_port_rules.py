@@ -34,7 +34,9 @@ quickstart_main = runpy.run_path(
     str(REPO / "examples" / "quickstart_torch.py"))["main"]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
-    REPO / "examples" / "serve_points_torch.py"]
+    REPO / "examples" / "serve_points_torch.py",
+    REPO / "examples" / "train_lm_torch.py",
+    REPO / "examples" / "data_discovery_torch.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -77,6 +79,22 @@ def test_join_and_serving_modules_are_scanned():
             "src/repro_torch/configs/spadas_trajlm.py",
             "src/repro_torch/launch/serve.py",
             "examples/serve_points_torch.py"} <= names
+
+
+def test_training_modules_are_scanned():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/train/__init__.py",
+            "src/repro_torch/train/optimizer.py",
+            "src/repro_torch/train/compression.py",
+            "src/repro_torch/train/train_step.py",
+            "src/repro_torch/checkpoint/__init__.py",
+            "src/repro_torch/checkpoint/ckpt.py",
+            "src/repro_torch/runtime/__init__.py",
+            "src/repro_torch/runtime/straggler.py",
+            "src/repro_torch/runtime/elastic.py",
+            "src/repro_torch/launch/train.py",
+            "examples/train_lm_torch.py",
+            "examples/data_discovery_torch.py"} <= names
 
 
 def test_cpu_tensors_take_the_plain_path():
@@ -266,3 +284,34 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                        text=True, timeout=300, cwd=tmp_path)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_training_needs_a_card_unless_told_cpu(tmp_path):
+    """The trainer's entry points: the train state, ``launch.train``,
+    both examples, and a restore or a reshard onto the card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train
+    from repro_torch.runtime import elastic
+    from repro_torch.train import optimizer, train_step
+
+    cfg = configs.get_reduced("spadas_trajlm")
+    opt = optimizer.OptConfig()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_step.init_train_state(cfg, opt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--reduced", "--steps", "1", "--lake-size", "4",
+                    "--ckpt-dir", str(tmp_path)])
+    for example in ("train_lm_torch.py", "data_discovery_torch.py"):
+        main = runpy.run_path(str(REPO / "examples" / example))["main"]
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main([])
+    state = train_step.init_train_state(cfg, opt, device="cpu")
+    ckpt.save(tmp_path, 1, state)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ckpt.restore(tmp_path, state, devices=["cuda:0"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        elastic.reshard_tree(state, "cuda")
+    assert state.params.device.type == "cpu"
