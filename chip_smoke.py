@@ -192,7 +192,7 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      parameters, float32 states) trained by
      ``repro_torch.launch.train.run`` at its defaults (batch 8 x seq 256,
      lr 3e-4 after 20 warm-up steps), its data curated on the card as the
-     trainer does, for 60 steps with an async checkpoint every 30: step ms
+     trainer does, for 60 steps with an async checkpoint every 10: step ms
      (median, spread), tokens per second, peak memory, the model-FLOP
      share of a step against the bf16 peak, one step under
      torch.profiler (device operations, busy ms, idle share); gates: the
@@ -210,7 +210,22 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      over the first 10 steps (their bytes a parameter, the losses within
      ``INT8_LOSS_ATOL`` of the float32 run's); mamba2_780m whole at full
      width with int8 states, 3 steps on one batch, the second loss below
-     the first.
+     the first;
+ 20. training on a mesh: ``launch.train.run([... "--mesh", "test"],
+     devices=["cuda:0"] * 8)``, the test mesh (data 4 x model 2) of
+     ZeRO-3 storage with data-parallel compute, its eight coordinates on
+     the card, phase 19's arguments for 10 steps with a checkpoint at
+     step 10: step ms (median), peak memory, each coordinate's resident
+     bytes, one step under torch.profiler; gates: the curation launches
+     ``bound_grid`` and ``hausdorff_grid`` (booked as
+     ``mesh_train_launches``) and the steps launch none, each loss within
+     ``MESH_LOSS_ATOL`` of phase 19's (its own first 10 steps are the
+     reference: the same seed, curation and pipeline), the parameters at
+     step 10 against phase 19's step-10 checkpoint (at most
+     ``MESH_OVER_SHARE`` of the elements past 0.1 lr), each coordinate's
+     bytes equal to the specs' prediction, and the mesh checkpoint
+     restored onto one device, equal to the mesh state leaf for leaf, its
+     step 11 within ``MESH_LOSS_ATOL`` of phase 19's.
 
 The second-to-last line is the kernel table as JSON (each row's
 ``launches`` from the local path, ``sharded_launches`` per phase-14 path
@@ -220,7 +235,8 @@ per phase-16 path; ``bound_matrices`` and ``set_intersect`` add
 ``at_path_shapes``, their times at phase 16's shapes; the three swept
 kernels add ``variants``, each launch shape's time at phase 3's shapes,
 and ``tuned``, the shape phase 17 installed; every local row adds
-``train_launches``, its launches in phase 19's training run), the last line
+``train_launches``, its launches in phase 19's training run, and
+``mesh_train_launches``, in phase 20's), the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
@@ -3197,12 +3213,15 @@ def kinds_phase(dev, card_line):
 
 #: the trainer's defaults (``launch/train.py``) at the full spadas_trajlm:
 #: batch 8 x seq 256, a lake of 256 trajectories (``examples/train_lm.py``)
-#: curated to k = 64; 60 steps with an async checkpoint every 30
+#: curated to k = 64; 60 steps with an async checkpoint every 10
 TRAIN_ARGS = ["--arch", "spadas_trajlm", "--batch", "8", "--seq", "256",
               "--lake-size", "256", "--log-every", "20"]
 TRAIN_STEPS = 60
 TRAIN_CKPT_AT = 30
 TRAIN_RESUMED = 10
+#: the run's checkpoints are every 10 steps: phase 20 holds the mesh run's
+#: state at step 10 against the step-10 checkpoint
+TRAIN_CKPT_EVERY = 10
 #: steps left out of the step-time statistics (first launches, cuBLAS
 #: heuristics, the allocator's first growth)
 TRAIN_WARM = 5
@@ -3389,7 +3408,7 @@ def mamba_train(dev, card_line):
 def train_phase(dev, rows, card_line):
     """Phase 19.  The full spadas_trajlm trained by
     ``launch.train.run`` (curation on the card, 60 steps, an async
-    checkpoint every 30), its curation's kernel launches booked as
+    checkpoint every 10), its curation's kernel launches booked as
     ``train_launches``, one step profiled, the card against the CPU, the
     resume gate with its planted faults, int8 states, and mamba2_780m's
     full-width steps.  The train steps launch none of the six kernels: the
@@ -3420,7 +3439,8 @@ def train_phase(dev, rows, card_line):
         ops.reset_launches()
         run, run_s = sync_time(lambda: train.run(
             TRAIN_ARGS + ["--steps", str(TRAIN_STEPS), "--ckpt-every",
-                          str(TRAIN_CKPT_AT), "--ckpt-dir", str(tmp / "a")]))
+                          str(TRAIN_CKPT_EVERY), "--ckpt-dir",
+                          str(tmp / "a")]))
         launches = dict(ops.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() - base
         for name in ("bound_grid", "hausdorff_grid"):
@@ -3478,6 +3498,9 @@ def train_phase(dev, rows, card_line):
             "card": card_line}
         log("train run: " + json.dumps(out))
         docs = run.pipeline.docs
+        ref = {"losses": losses[:MESH_STEPS + 1], "docs": docs,
+               "params": ckpt_params(tmp / "a" / cfg.name
+                                     / f"step_{MESH_STEPS:08d}")}
         del run, state, model
         for r in rows:
             r["train_launches"] = launches[r["name"]]
@@ -3555,6 +3578,203 @@ def train_phase(dev, rows, card_line):
         check(not any(counts.values()), f"the train steps launched a "
               f"search kernel: {counts}")
     log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    return ref
+
+
+def ckpt_params(step_dir: Path) -> dict:
+    """The ``.params/...`` leaves of a committed checkpoint, as numpy."""
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    out = {}
+    for key, info in manifest["leaves"].items():
+        if key.startswith(".params/"):
+            with np.load(step_dir / f"shard_{info['shard']}.npz") as f:
+                out[key] = f[key.replace("/", "__")]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: training on the test mesh, its eight coordinates on the card
+# ---------------------------------------------------------------------------
+
+#: the trainer's ``--mesh test`` (data 4 x model 2) over eight entries of
+#: the card, phase 19's arguments (the same seed, curation and pipeline),
+#: 10 steps; the reference is phase 19's own first 10 steps
+MESH_STEPS = 10
+MESH_DEVICES = ["cuda:0"] * 8
+#: each step's loss against phase 19's: the mesh step sums 4 groups'
+#: gradients of 2 rows where one device takes one backward over 8, so
+#: only the order of float32 sums and the bf16 products' blocking differ
+#: (predicted gap <= 5e-4; the port's CPU tests hold a mesh step to the
+#: JAX mesh step at 2e-3, the bound kept here)
+MESH_LOSS_ATOL = 2e-3
+#: the parameters at step 10 against phase 19's step-10 checkpoint, in
+#: units of the run's lr (3e-4): at most 1 % of the elements past 0.1 lr
+#: (phase 19's card-against-CPU bound is 1.5 % after one step)
+MESH_OVER_SHARE = 0.01
+
+
+def mesh_bytes_predicted(params) -> list:
+    """Each coordinate's bytes from the specs alone: every parameter's
+    block (its numel over the product of the mesh axes its spec names)
+    for the params and the two float32 moments."""
+    mesh = params.mesh
+    per = 0
+    for name, x in params.tensors.items():
+        spec = params.shardings[name].spec
+        split = 1
+        for entry in spec:
+            for axis in ((entry,) if isinstance(entry, str)
+                         else (entry or ())):
+                split *= mesh.shape[axis]
+        per += x.shards[0].element_size() * 3 * (
+            int(np.prod(x.shape)) // split)
+    return [per] * len(mesh.flat)
+
+
+def mesh_train_phase(dev, rows, ref, card_line):
+    """Phase 20.  ``launch.train.run(..., "--mesh", "test")`` over eight
+    entries of the card: the full spadas_trajlm, phase 19's arguments, 10
+    steps, a checkpoint at step 10 (gathered leaves, the JAX layout); its
+    curation's launches booked as ``mesh_train_launches``.  Gates: each
+    loss against phase 19's, the state at step 10 against phase 19's
+    step-10 checkpoint, each coordinate's resident bytes against the
+    specs, and the mesh checkpoint restored onto one device, equal to the
+    mesh state leaf for leaf, stepping on to phase 19's loss at step 11;
+    the steps launch no search kernel."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt as ckpt_lib
+    from repro_torch.data import tokens as tok
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import convert
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_mesh_train_"))
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        run, run_s = sync_time(lambda: train.run(
+            TRAIN_ARGS + ["--mesh", "test", "--steps", str(MESH_STEPS),
+                          "--ckpt-every", str(MESH_STEPS), "--ckpt-dir",
+                          str(tmp)], devices=MESH_DEVICES))
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - base
+        for name in ("bound_grid", "hausdorff_grid"):
+            check(launches[name] > 0, f"the mesh trainer's curation "
+                  f"launched no {name}")
+        for r in rows:
+            r["mesh_train_launches"] = launches[r["name"]]
+        state = run.state
+        params = state.params
+        mesh = params.mesh
+        check(mesh.shape == {"data": 4, "model": 2}
+              and mesh.flat == [torch.device(d) for d in MESH_DEVICES],
+              f"the mesh is {mesh.shape} over {mesh.flat}")
+        cfg = params.cfg
+
+        # each step's loss against phase 19's first 10
+        losses = run.losses
+        gaps = np.abs(np.asarray(losses) - np.asarray(ref["losses"][:10]))
+        check(len(losses) == MESH_STEPS and gaps.max() <= MESH_LOSS_ATOL,
+              f"mesh losses {losses} against one device "
+              f"{ref['losses'][:10]}")
+
+        # the state at step 10 against phase 19's step-10 checkpoint
+        leaves = convert.state_leaves(state)
+        worst, over, n = 0.0, 0, 0
+        for key, want in ref["params"].items():
+            gap = np.abs(leaves[key].cpu().double().numpy()
+                         - want.astype(np.float64)) / 3e-4
+            worst = max(worst, float(gap.max()))
+            over += int((gap > 0.1).sum())
+            n += gap.size
+        check(over / n <= MESH_OVER_SHARE, f"the mesh state at step 10: "
+              f"{over / n:.4%} of the elements past 0.1 lr")
+
+        # resident bytes of each coordinate against the specs
+        got = ts.state_device_bytes(state)
+        want_b = mesh_bytes_predicted(params)
+        check(got == want_b, f"per-device bytes {got}, the specs say "
+              f"{want_b}")
+
+        # the mesh checkpoint (step 10) restored onto one device, stepping
+        # on: its loss at step 11 against phase 19's
+        ops.reset_launches()
+        opt = opt_lib.OptConfig(lr=3e-4, warmup_steps=20)   # the trainer's
+        fresh = ts.train_state_for(LanguageModel(
+            cfg, device=dev, seed=7, init_on_device=True), opt)
+        restored, extra = ckpt_lib.restore(tmp / cfg.name, fresh)
+        check(int(restored.step) == MESH_STEPS, "restored step")
+        back = convert.state_leaves(restored)
+        check(all(torch.equal(back[k].cpu(), leaves[k].cpu())
+                  for k in leaves if not hasattr(leaves[k], "codes")),
+              "the one-device restore differs from the mesh state")
+        pipe = tok.TokenPipeline(ref["docs"], 256, 8, seed=0,
+                                 state=tok.PipelineState.from_dict(
+                                     extra["pipeline"]))
+        restored, m = ts.make_train_step(cfg, opt)(restored,
+                                                   pipe.next_batch())
+        loss11 = float(m["loss"])
+        check(abs(loss11 - ref["losses"][MESH_STEPS]) <= MESH_LOSS_ATOL,
+              f"step 11 on one device from the mesh checkpoint: {loss11}, "
+              f"phase 19: {ref['losses'][MESH_STEPS]}")
+        del restored, fresh, back
+
+        # one more mesh step under the profiler
+        step_fn = ts.make_train_step(cfg, opt,
+                                     param_shardings=params.shardings)
+        batch = run.pipeline.next_batch()
+
+        def one_step():
+            nonlocal state
+            state, met = step_fn(state, batch)
+            return met["loss"]
+
+        per_name, busy_ms, wall_ms, n_ops = device_profile(one_step)
+        check(not any(ops.LAUNCHES.values()), f"the train steps launched a "
+              f"search kernel: {dict(ops.LAUNCHES)}")
+        steady = np.asarray(run.step_s[TRAIN_WARM:])
+        step_ms = float(np.median(steady)) * 1e3
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+        log("mesh train: " + json.dumps({
+            "config": cfg.name, "mesh": mesh.shape, "devices": MESH_DEVICES,
+            "batch": [8, 256], "steps": MESH_STEPS, "run_s": run_s,
+            "setup_s": run_s - float(sum(run.step_s)),
+            "losses": losses, "one_device_losses": ref["losses"][:10],
+            "loss_gaps": gaps.tolist(), "max_loss_gap": float(gaps.max()),
+            "loss_atol": MESH_LOSS_ATOL,
+            "step10_param_gap_lr": worst,
+            "step10_share_past_0.1_lr": over / n,
+            "over_share_bound": MESH_OVER_SHARE,
+            "step_ms_median": step_ms,
+            "step_ms_min_max": [float(steady.min()) * 1e3,
+                                float(steady.max()) * 1e3],
+            "first_steps_ms": [t * 1e3 for t in run.step_s[:TRAIN_WARM]],
+            "tokens_per_s": 8 * 256 / step_ms * 1e3,
+            "device_bytes": got, "device_bytes_predicted": want_b,
+            "whole_state_bytes": sum(
+                3 * 4 * int(np.prod(x.shape))
+                for x in params.tensors.values()),
+            "peak_above_resident_bytes": peak,
+            "restored_step11_loss": loss11,
+            "one_device_step11_loss": ref["losses"][MESH_STEPS],
+            "step_profile": {"device_ops": n_ops, "device_busy_ms": busy_ms,
+                             "profiled_wall_ms": wall_ms,
+                             "idle_share_of_step": 1.0 - busy_ms / wall_ms,
+                             "top_ops_ms": {k[:80]: v for k, v in top}},
+            "launches": {k: v for k, v in launches.items() if v},
+            "card": card_line}))
+        del state, run
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -3938,7 +4158,11 @@ def main() -> int:
     log(f"phase 18: {time.perf_counter() - t18:.1f} s")
 
     # ---- 19. training: the LM trained on data curated on the card -------
-    train_phase(dev, rows, smi[0])
+    train_ref = train_phase(dev, rows, smi[0])
+
+    # ---- 20. training on the test mesh, eight coordinates on the card ---
+    mesh_train_phase(dev, rows, train_ref, smi[0])
+    del train_ref
     rows += j_rows
     log(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))

@@ -19,7 +19,9 @@ joined with "/".  Properties, as in the JAX package:
     once its COMMITTED marker is in; ``restore`` takes the newest
     committed step;
   * elastic: arrays are logical (whole), so a restore puts them on any
-    device (``devices=``, where the JAX package takes ``shardings=``);
+    device (``devices=``) or mesh (``shardings=``); a state on a mesh
+    saves its leaves gathered whole, so a checkpoint written on a mesh
+    restores on one device and the reverse;
   * async: ``AsyncSaver`` copies the state to the host on the caller's
     thread, then writes in a background thread while training goes on.
 
@@ -43,7 +45,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import convert
 from repro_torch.train.optimizer import QTensor
-from repro_torch.train.train_step import TrainState
+from repro_torch.train.train_step import TrainState, reshard_state
 
 _MAX_SHARD_BYTES = 1 << 30
 
@@ -193,12 +195,15 @@ def _rebuild(like, get, dev, path=()):
 
 
 def restore(ckpt_dir: str | Path, tree_like: Any, step: int | None = None,
-            devices=None) -> tuple[Any, dict]:
+            devices=None, shardings: dict | None = None) -> tuple[Any, dict]:
     """Restore into the structure of ``tree_like``: a port ``TrainState``
     (its model is overwritten in place, see
-    ``convert.load_state``) or a nested dict of tensors.  The leaves go to
-    ``devices`` (a device, or a list whose first device takes the state),
-    else where ``tree_like``'s lie.  Returns (tree, extra)."""
+    ``convert.load_state``; on a mesh, its blocks) or a nested dict of
+    tensors.  The leaves go to ``devices`` (a device, or a list whose
+    first device takes the state), else where ``tree_like``'s lie.  With
+    ``shardings`` (param name -> NamedSharding) the restored
+    ``TrainState`` is placed by them on their mesh, whether ``tree_like``
+    is on one device or on a mesh.  Returns (tree, extra)."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -224,4 +229,6 @@ def restore(ckpt_dir: str | Path, tree_like: Any, step: int | None = None,
     finally:
         for f in shards.values():
             f.close()
+    if shardings is not None:
+        tree = reshard_state(tree, shardings)
     return tree, manifest["extra"]

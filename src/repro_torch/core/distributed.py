@@ -20,6 +20,14 @@ shard that owns it; JAX adds zeros from the other shards, which is exact
 too, but selecting also keeps a ``-0.0``).  A one-shard list comes back
 as it is, so a one-shard mesh runs the local program op for op.
 
+A mesh also holds arrays split over it, as JAX's ``NamedSharding``
+places them (the train state on a mesh): :class:`PartitionSpec` names
+the mesh axes each dim is split over, :class:`NamedSharding` pairs it
+with a mesh, and a :class:`Sharded` array is one tensor per mesh
+coordinate, each on that coordinate's device (``place``, the counterpart
+of ``jax.device_put``; ``gather``, of ``numpy.asarray``).  Coordinates
+that differ only along axes the spec does not name hold copies.
+
 Also here, as in the JAX package: ``global_kth_smallest`` (the tau
 reduction of sharded ExactHaus and of the joinable refine),
 ``sharded_topk_bounds``, ``sharded_topk_gbo`` and the ring ops
@@ -28,7 +36,11 @@ and whose D shards visit every Q shard in turn.
 """
 from __future__ import annotations
 
+import itertools
+import math
 from dataclasses import dataclass
+from functools import cached_property
+from typing import NamedTuple
 
 import torch
 
@@ -88,18 +100,26 @@ class Mesh:
         object.__setattr__(self, "devices", _resolve(self.devices))
         object.__setattr__(self, "axis_names", names)
 
+    @cached_property
+    def _dims(self) -> tuple:
+        return _shape_of(self.devices)
+
+    @cached_property
+    def _flat(self) -> tuple:
+        def walk(x):
+            return ([d for y in x for d in walk(y)] if isinstance(x, tuple)
+                    else [x])
+        return tuple(walk(self.devices))
+
     @property
     def shape(self) -> dict:
         """Axis name -> extent, in axis order."""
-        return dict(zip(self.axis_names, _shape_of(self.devices)))
+        return dict(zip(self.axis_names, self._dims))
 
     @property
     def flat(self) -> list:
         """Every device, row-major."""
-        def walk(x):
-            return ([d for y in x for d in walk(y)] if isinstance(x, tuple)
-                    else [x])
-        return walk(self.devices)
+        return list(self._flat)
 
     @property
     def lead(self) -> torch.device:
@@ -131,6 +151,187 @@ def shard(x: torch.Tensor, devices, dim: int = 0) -> list:
         raise ValueError(f"shard: extent {x.shape[dim]} does not split "
                          f"into {n} shards")
     return [p.to(d) for p, d in zip(torch.chunk(x, n, dim=dim), devices)]
+
+
+def grid_mesh(sizes, names, devices, what: str) -> Mesh:
+    """The mesh of extents ``sizes`` and axis names ``names`` over the
+    first devices of ``devices`` (row-major: the last axis varies
+    fastest); fewer devices than it needs raise, naming ``what``."""
+    sizes = tuple(sizes)
+    flat = take_devices(math.prod(sizes), list(devices), what)
+
+    def grid(items, dims):
+        if not dims:
+            return items[0]
+        step = len(items) // dims[0]
+        return tuple(grid(items[i * step:(i + 1) * step], dims[1:])
+                     for i in range(dims[0]))
+
+    return Mesh(grid(flat, sizes), tuple(names))
+
+
+# ---------------------------------------------------------------------------
+# arrays split over a mesh
+# ---------------------------------------------------------------------------
+
+
+class PartitionSpec(tuple):
+    """JAX's ``PartitionSpec``: for each leading dim of an array, the mesh
+    axes it is split over (None: not split; an axis name; or a tuple of
+    names, the first the major one).  Dims past its length are not
+    split.  A tuple of one name is that name, as in JAX."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self):
+        return "P" + tuple.__repr__(self)
+
+
+class NamedSharding(NamedTuple):
+    """JAX's ``NamedSharding``: a mesh and the spec of an array on it."""
+    mesh: Mesh
+    spec: PartitionSpec
+
+
+class Sharded(NamedTuple):
+    """An array placed on a mesh: one tensor per mesh coordinate, in
+    ``mesh.flat`` order, each on that coordinate's device and holding the
+    block ``shard_slices`` gives it."""
+    shards: list
+    sharding: NamedSharding
+    shape: tuple
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one spec entry, major first."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def mesh_coords(mesh: Mesh) -> list:
+    """Every coordinate of ``mesh`` (axis name -> index), in
+    ``mesh.flat`` order."""
+    names, sizes = tuple(mesh.shape), tuple(mesh.shape.values())
+    return [dict(zip(names, c))
+            for c in itertools.product(*(range(n) for n in sizes))]
+
+
+def shard_slices(shape, sharding: NamedSharding, coord: dict) -> tuple:
+    """The block of an array of ``shape`` that coordinate ``coord`` holds
+    under ``sharding``: one slice per dim.  A dim whose extent the split
+    does not divide raises."""
+    sizes = sharding.mesh.shape
+    out, used = [], set()
+    for i, extent in enumerate(shape):
+        axes = spec_axes(sharding.spec[i]) if i < len(sharding.spec) else ()
+        if used & set(axes):
+            raise ValueError(f"spec {sharding.spec}: a mesh axis splits two "
+                             f"dims")
+        used.update(axes)
+        n, pos = 1, 0
+        for a in axes:
+            n, pos = n * sizes[a], pos * sizes[a] + coord[a]
+        if extent % n:
+            raise ValueError(f"spec {sharding.spec}: dim {i} of {tuple(shape)}"
+                             f" does not split into {n}")
+        size = extent // n
+        out.append(slice(pos * size, (pos + 1) * size))
+    return tuple(out)
+
+
+def place(x: torch.Tensor, sharding: NamedSharding) -> Sharded:
+    """``x`` split by ``sharding``: each coordinate's block copied to its
+    device (copies, also where coordinates share a device)."""
+    mesh = sharding.mesh
+    shards = [x[shard_slices(x.shape, sharding, c)].to(
+        d, copy=True, memory_format=torch.contiguous_format)
+        for c, d in zip(mesh_coords(mesh), mesh.flat)]
+    return Sharded(shards, sharding, tuple(x.shape))
+
+
+def _blocks(x: Sharded):
+    """(coordinate index, block slices) of each distinct block of ``x``,
+    from the first coordinate that holds it."""
+    seen = set()
+    for i, c in enumerate(mesh_coords(x.sharding.mesh)):
+        idx = shard_slices(x.shape, x.sharding, c)
+        key = tuple((sl.start, sl.stop) for sl in idx)
+        if key not in seen:
+            seen.add(key)
+            yield i, idx
+
+
+def gather(x: Sharded, device=None, out: torch.Tensor | None = None
+           ) -> torch.Tensor:
+    """The whole array of ``x``: written into ``out``, or into a new
+    tensor on ``device`` (the mesh's lead device by default), each block
+    once."""
+    if out is None:
+        out = torch.empty(x.shape, dtype=x.shards[0].dtype,
+                          device=x.sharding.mesh.lead if device is None
+                          else device)
+    for i, idx in _blocks(x):
+        out[idx].copy_(x.shards[i])
+    return out
+
+
+def write(x: Sharded, whole: torch.Tensor) -> None:
+    """Overwrite every coordinate's block of ``x`` (in place) with its
+    block of ``whole``."""
+    for c, s in zip(mesh_coords(x.sharding.mesh), x.shards):
+        s.copy_(whole[shard_slices(x.shape, x.sharding, c)])
+
+
+# A tree below is a dict whose leaves are tensors (or Sharded arrays), or
+# NamedTuples of them (a QTensor's codes and scales): each tensor field of
+# such a leaf is placed or gathered, its other fields kept.
+
+
+def _is_part(x) -> bool:
+    return isinstance(x, (torch.Tensor, Sharded))
+
+
+def _map_leaf(fn, x, *rest):
+    if _is_part(x):
+        return fn(x, *rest)
+    return x._replace(**{f: fn(getattr(x, f), *(getattr(r, f) for r in rest))
+                         for f in x._fields if _is_part(getattr(x, f))})
+
+
+def place_tree(tree: dict, shardings: dict) -> dict:
+    """Each leaf of ``tree`` placed by its sharding in ``shardings`` (a
+    NamedSharding, or for a NamedTuple leaf a NamedTuple of them)."""
+    return {n: _map_leaf(place, x, shardings[n]) for n, x in tree.items()}
+
+
+def gather_tree(tree: dict, device=None) -> dict:
+    """Each Sharded leaf of ``tree`` whole on ``device`` (the mesh's lead
+    device by default)."""
+    return {n: _map_leaf(lambda s: gather(s, device), x)
+            for n, x in tree.items()}
+
+
+def tree_shardings(tree: dict) -> dict:
+    """The sharding of each Sharded leaf of ``tree``."""
+    return {n: _map_leaf(lambda s: s.sharding, x) for n, x in tree.items()}
+
+
+def tree_bytes(*trees) -> list:
+    """Resident bytes of each mesh coordinate (``mesh.flat`` order) over
+    the Sharded leaves of ``trees``."""
+    out = None
+    for tree in trees:
+        for x in tree.values():
+            parts = [x] if _is_part(x) else [
+                getattr(x, f) for f in x._fields if _is_part(getattr(x, f))]
+            for part in parts:
+                b = [s.numel() * s.element_size() for s in part.shards]
+                out = b if out is None else [u + v for u, v in zip(out, b)]
+    return out or []
 
 
 # ---------------------------------------------------------------------------

@@ -5,13 +5,22 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch spadas_trajlm \\
         --steps 200 --batch 8 --seq 256          # on the card
 
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --reduced --steps 4 --mesh test        # (4, 2) over 8 x the CPU
+
 Counterpart of ``repro.launch.train``, with its flags and its wiring:
 Spadas data curation (``data.discovery.curate`` on the device, so
 ExactHaus runs its kernels there) -> token pipeline -> train step ->
 watchdog -> async checkpointing.  ``--device`` names the device (the card
-by default; without one it raises).  ``--mesh none`` is the only mesh:
-the JAX package's TPU meshes (``test``, ``single``, ``multi``) are ROADMAP
-item 14e, and asking for one raises.
+by default; without one it raises).
+
+``--mesh test|single|multi`` trains on the JAX package's grids
+(``launch.mesh``: (4, 2), (16, 16), (2, 16, 16)) with the state placed
+by its rules (``launch.sharding.param_shardings``) and the mesh step of
+``train.train_step``.  The mesh is the visible cards, or ``devices``
+where a caller of :func:`run` lists them (``["cuda:0"] * 8`` holds the
+test mesh on one card); with ``--device cpu`` it is that many entries of
+the CPU.  Too few devices raise.
 """
 from __future__ import annotations
 
@@ -27,6 +36,9 @@ from repro_torch import configs
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.data import synthetic, tokens as tok_lib
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding as sh
+from repro_torch.models import sharding_rules
 from repro_torch.runtime.straggler import (StepWatchdog, StragglerEvent,
                                            WatchdogConfig)
 from repro_torch.train import optimizer as opt_lib
@@ -87,13 +99,29 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def run(argv=None) -> TrainRun:
+def make_mesh(kind: str, device=None, devices=None):
+    """The ``--mesh`` grid (None for ``none``): over ``devices`` where
+    given, else over as many entries of ``device`` as it needs when that
+    is the CPU, else over the visible cards."""
+    if kind == "none":
+        return None
+    multi = kind == "multi"
+    if devices is None and device is not None \
+            and torch.device(device).type == "cpu":
+        shapes = (mesh_lib.TEST_SHAPES if kind == "test"
+                  else mesh_lib.PRODUCTION_SHAPES)
+        devices = [device] * math.prod(shapes[multi])
+    if kind == "test":
+        return mesh_lib.make_test_mesh(devices=devices)
+    return mesh_lib.make_production_mesh(multi_pod=multi, devices=devices)
+
+
+def run(argv=None, devices=None) -> TrainRun:
+    """Train as the flags say.  ``devices`` lists the devices a
+    ``--mesh`` is laid over (without it: see :func:`make_mesh`)."""
     args = parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the TPU meshes are ROADMAP item 14e; the "
-            f"port trains on one device (--mesh none)")
-    dev = resolve_device(args.device)
+    mesh = make_mesh(args.mesh, args.device, devices)
+    dev = mesh.lead if mesh is not None else resolve_device(args.device)
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get(args.arch))
     if not cfg.embed_input or cfg.vision_tokens:
@@ -106,7 +134,14 @@ def run(argv=None) -> TrainRun:
     pipe = build_pipeline(cfg, args, dev)
     state = ts.init_train_state(cfg, opt_cfg, device=dev, seed=0,
                                 compress=args.compress_grads)
-    step_fn = ts.make_train_step(cfg, opt_cfg, compress=args.compress_grads)
+    p_shard = None
+    if mesh is not None:
+        sharding_rules.set_mesh(mesh)
+        p_shard = sh.param_shardings(
+            dict(state.params.named_parameters()), mesh)
+        state = ts.shard_state(state, p_shard)
+    step_fn = ts.make_train_step(cfg, opt_cfg, compress=args.compress_grads,
+                                 param_shardings=p_shard)
 
     start = 0
     ckpt_dir = Path(args.ckpt_dir) / cfg.name

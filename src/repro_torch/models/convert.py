@@ -18,14 +18,18 @@ port ``TrainState`` under the JAX package's checkpoint keys
 ``.err/...``, ``.step``; an int8 moment ``<key>/codes`` and
 ``<key>/scales``), so that a checkpoint written by either package
 restores in the other, and :func:`train_state_from_jax`, which carries a
-JAX ``TrainState`` (numpy leaves) into the port.  Nothing here imports
-JAX.
+JAX ``TrainState`` (numpy leaves) into the port.  A state on a mesh reads
+and fills the same keys: its leaves are gathered whole, or read whole and
+placed by its shardings.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
+from repro_torch.core.distributed import (Sharded, gather, gather_tree,
+                                          place_tree, tree_shardings, write)
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.optimizer import QTensor
 
@@ -107,11 +111,24 @@ def _stacked(key: str, parts: list):
     return torch.stack(parts)
 
 
+def on_mesh(state) -> bool:
+    """Whether a port ``TrainState`` is held on a mesh (its ``params`` a
+    ``train_step.MeshParams``, not the model itself)."""
+    return not isinstance(state.params, nn.Module)
+
+
 def state_leaves(state) -> dict:
     """Every leaf of a port ``TrainState`` under its JAX checkpoint key,
     block leaves stacked over the repeats (new tensors; the others are the
-    state's own)."""
-    params = {n: p.detach() for n, p in state.params.named_parameters()}
+    state's own).  A state on a mesh gives the same leaves, each gathered
+    whole onto the mesh's lead device."""
+    if on_mesh(state):
+        params = {n: gather(x) for n, x in state.params.tensors.items()}
+        m, v = gather_tree(state.opt.m), gather_tree(state.opt.v)
+        err = None if state.err is None else gather_tree(state.err)
+    else:
+        params = {n: p.detach() for n, p in state.params.named_parameters()}
+        m, v, err = state.opt.m, state.opt.v, state.err
     groups = leaf_groups(params)
     out = {}
 
@@ -120,21 +137,24 @@ def state_leaves(state) -> dict:
             out[prefix + key] = _stacked(key, [tree[n] for n in names])
 
     put(".params/", params)
-    put(".opt/.m/", state.opt.m)
-    put(".opt/.v/", state.opt.v)
+    put(".opt/.m/", m)
+    put(".opt/.v/", v)
     out[".opt/.count"] = state.opt.count
-    if state.err is not None:
-        put(".err/", state.err)
+    if err is not None:
+        put(".err/", err)
     out[".step"] = state.step
     return out
 
 
-def _tensor(a, like: torch.Tensor, dev, what: str) -> torch.Tensor:
+def _tensor(a, like, dev, what: str) -> torch.Tensor:
+    """``a`` as a tensor on ``dev`` of ``like``'s dtype (``like``: a
+    tensor, or a Sharded array, whose whole shape ``a`` must have)."""
     a = np.asarray(a)
     if tuple(a.shape) != tuple(like.shape):
         raise ValueError(f"{what}: shape {a.shape}, expected "
                          f"{tuple(like.shape)}")
-    return torch.from_numpy(a.copy()).to(device=dev, dtype=like.dtype)
+    dtype = like.shards[0].dtype if isinstance(like, Sharded) else like.dtype
+    return torch.from_numpy(a.copy()).to(device=dev, dtype=dtype)
 
 
 def load_state(like, get, device=None):
@@ -143,12 +163,20 @@ def load_state(like, get, device=None):
     ``like`` is moved to the device (``device``, else where it lies) and
     its parameters overwritten in place; the other leaves are new tensors
     there, of ``like``'s structure (float32 or int8 moments, error
-    feedback or none).  A missing key raises ``KeyError``, a shape that
-    differs ``ValueError``."""
-    model = like.params
-    dev = torch.device(device) if device is not None else model.device
-    model.to(dev)
-    params = dict(model.named_parameters())
+    feedback or none).  A ``like`` on a mesh keeps its mesh and
+    shardings: each leaf is read whole on the host and placed (its
+    parameters' blocks overwritten in place; ``device`` is not used).  A
+    missing key raises ``KeyError``, a shape that differs
+    ``ValueError``."""
+    mesh = on_mesh(like)
+    if mesh:
+        dev = torch.device("cpu")
+        params = like.params.tensors
+    else:
+        model = like.params
+        dev = torch.device(device) if device is not None else model.device
+        model.to(dev)
+        params = dict(model.named_parameters())
     groups = leaf_groups(params)
 
     def repeats(a, key, names):
@@ -183,6 +211,22 @@ def load_state(like, get, device=None):
                                      prefix + key)
         return out
 
+    if mesh:
+        lead = like.step.device
+
+        def placed(prefix, tree):
+            return place_tree(read(prefix, tree), tree_shardings(tree))
+
+        with torch.no_grad():
+            for n, t in read(".params/", params).items():
+                write(params[n], t)
+        opt = like.opt._replace(
+            m=placed(".opt/.m/", like.opt.m), v=placed(".opt/.v/", like.opt.v),
+            count=_tensor(get(".opt/.count"), like.opt.count, lead,
+                          ".opt/.count"))
+        err = None if like.err is None else placed(".err/", like.err)
+        return like._replace(opt=opt, err=err, step=_tensor(
+            get(".step"), like.step, lead, ".step"))
     with torch.no_grad():
         for n, t in read(".params/", params).items():
             params[n].copy_(t)

@@ -12,7 +12,8 @@ KV-chunked with an online softmax, ``NEG_INF`` masks and
 ``acc / max(l, 1e-30)``, the flash-attention schedule of the JAX code; no
 fused-attention library is called, so the card runs the arithmetic the CPU
 tests check.  The ``shard(...)`` annotations of the JAX code are dropped:
-on one device they do nothing.
+on one device they do nothing, and the mesh train step splits its batch
+by the spec they give (``models.sharding_rules.spec_for``).
 
 A layer function takes its parameters as an object with the JAX names as
 attributes (the modules of :mod:`repro_torch.models.model`).
@@ -36,9 +37,12 @@ def dense_init(gen: torch.Generator, shape,
                scale: float | None = None) -> nn.Parameter:
     """The JAX package's ``dense_init``: a float32 normal draw times
     ``scale`` (default 1/sqrt(fan_in), fan_in = shape[0]), drawn from
-    ``gen`` on the generator's own device."""
+    ``gen`` on the generator's own device; inside ``torch.device("meta")``
+    a meta tensor (a shape, no values)."""
     s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    w = torch.randn(shape, generator=gen, device=gen.device)
+    meta = torch.get_default_device().type == "meta"
+    w = torch.randn(shape, generator=gen,
+                    device="meta" if meta else gen.device)
     return nn.Parameter(w.mul_(s))
 
 

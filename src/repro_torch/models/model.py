@@ -35,6 +35,7 @@ written in place (the JAX code returns updated copies): ``prefill`` and
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 
 import torch
 from torch import nn
@@ -174,7 +175,9 @@ class LanguageModel(nn.Module):
     with ``init_on_device=True``, by a generator on ``device`` itself
     (other weights for the same seed; a full-width MoE's billions of
     normals take seconds there and a minute on the host).  Parameters are
-    float32, as the JAX package's; activations are bf16."""
+    float32, as the JAX package's; activations are bf16.  On the ``meta``
+    device the parameters are shapes without values (placement plans at
+    full width)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
                  init_on_device: bool = False):
@@ -183,14 +186,16 @@ class LanguageModel(nn.Module):
         self.cfg = cfg
         gen = torch.Generator(device=dev if init_on_device else "cpu")
         gen.manual_seed(seed)
-        self.embed = (Embedding(cfg.vocab_size, cfg.d_model, gen)
-                      if cfg.embed_input else None)
-        self.head = (None if cfg.tie_embeddings
-                     else Embedding(cfg.vocab_size, cfg.d_model, gen))
-        self.final_norm = RMSNorm(cfg.d_model, gen.device)
-        self.blocks = nn.ModuleList(
-            nn.ModuleList(Block(kind, cfg, gen) for kind in cfg.block_pattern)
-            for _ in range(cfg.n_repeats))
+        with torch.device("meta") if dev.type == "meta" else nullcontext():
+            self.embed = (Embedding(cfg.vocab_size, cfg.d_model, gen)
+                          if cfg.embed_input else None)
+            self.head = (None if cfg.tie_embeddings
+                         else Embedding(cfg.vocab_size, cfg.d_model, gen))
+            self.final_norm = RMSNorm(cfg.d_model, gen.device)
+            self.blocks = nn.ModuleList(
+                nn.ModuleList(Block(kind, cfg, gen)
+                              for kind in cfg.block_pattern)
+                for _ in range(cfg.n_repeats))
         self.requires_grad_(False)
         self.to(dev)
 

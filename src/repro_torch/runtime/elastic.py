@@ -11,19 +11,22 @@ parallelism needs a full ring) and shrinking the data/pod axes, which only
 changes the gradient all-reduce span; the per-device batch is rescaled to
 keep the global batch.  ``make_mesh_from_plan`` lays the plan over a
 device list as a :class:`repro_torch.core.distributed.Mesh`, and
-``reshard_tree`` moves a state onto one device: the port trains on one
-device, and sharding a state over a mesh is ROADMAP item 14e.
+``reshard_tree`` moves a state onto the new mesh's shardings (or onto one
+device), so that ``plan_remesh`` -> ``make_mesh_from_plan`` ->
+``reshard_tree`` resumes training on the survivors.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 from torch import nn
 
-from repro_torch.core.distributed import Mesh, take_devices
+from repro_torch.core.distributed import (Mesh, Sharded, gather, grid_mesh,
+                                          place)
 from repro_torch.device import resolve_device
+from repro_torch.models import convert
+from repro_torch.train import train_step as ts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,24 +79,32 @@ def make_mesh_from_plan(plan: RemeshPlan, devices: list) -> Mesh:
     """The plan's mesh over the first devices of ``devices`` (row-major:
     the last axis varies fastest); fewer devices than the plan needs
     raise."""
-    sizes = plan.new_axis_sizes
-    flat = take_devices(math.prod(sizes), list(devices), "make_mesh_from_plan")
-
-    def grid(items, dims):
-        if not dims:
-            return items[0]
-        step = len(items) // dims[0]
-        return tuple(grid(items[i * step:(i + 1) * step], dims[1:])
-                     for i in range(dims[0]))
-
-    return Mesh(grid(flat, sizes), tuple(plan.new_shape))
+    return grid_mesh(plan.new_axis_sizes, tuple(plan.new_shape), devices,
+                     "make_mesh_from_plan")
 
 
-def reshard_tree(tree, device):
-    """Move every leaf of ``tree`` onto ``device``: tensors (a QTensor's
-    codes and scales among them) are copied there, a module is moved in
-    place; dicts, lists, tuples and NamedTuples keep their structure."""
-    dev = resolve_device(device)
+def reshard_tree(tree, new_shardings):
+    """Move a state onto the new mesh's shardings, as the JAX package's
+    ``device_put`` with shardings derived for the new mesh does:
+
+      * a ``TrainState`` (on one device or on a mesh) and ``new_shardings``
+        its param shardings (name -> NamedSharding): the state placed by
+        them (``train_step.reshard_state``);
+      * a dict of tensors or Sharded arrays, and a dict of NamedShardings
+        with the same keys: each leaf gathered whole and placed;
+      * any tree and a device: every leaf moved onto that one device
+        (tensors, a QTensor's codes and scales among them, are copied
+        there, a module is moved in place, a mesh state is gathered
+        there); dicts, lists, tuples and NamedTuples keep their
+        structure."""
+    if isinstance(new_shardings, dict):
+        if isinstance(tree, ts.TrainState):
+            return ts.reshard_state(tree, new_shardings)
+        return {k: place(gather(x) if isinstance(x, Sharded) else x,
+                         new_shardings[k]) for k, x in tree.items()}
+    dev = resolve_device(new_shardings)
+    if isinstance(tree, ts.TrainState) and convert.on_mesh(tree):
+        return ts.unshard_state(tree, dev)
     if isinstance(tree, nn.Module):
         return tree.to(dev)
     if isinstance(tree, torch.Tensor):

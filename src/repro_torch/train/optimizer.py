@@ -130,19 +130,24 @@ def global_norm(leaves) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(params: dict, grads: dict, state: OptState,
-                  cfg: OptConfig, *, ranks=None):
+                  cfg: OptConfig, *, ranks=None, grad_norm=None):
     """One AdamW step (with de/re-quantization of int8 states), in place:
     each parameter of ``params`` (name -> tensor) and each float32 moment
     of ``state`` is overwritten; int8 moments are replaced.  Returns
     (params, the new OptState, the global norm of ``grads`` before the
     clip).  Every scalar of the schedule stays on the device, so a step
-    never waits for the card."""
+    never waits for the card.
+
+    ``grad_norm`` (a 0-d tensor on the parameters' device) is the norm
+    to clip by, where ``params`` are one mesh coordinate's slices and the
+    norm is the whole gradient's; else it is taken over ``grads``."""
     count = state.count + 1
     lr = _schedule(cfg, count)
     c1 = 1.0 - cfg.b1 ** count.float()
     c2 = 1.0 - cfg.b2 ** count.float()
 
-    gn = global_norm(grads[n] for n in params)
+    gn = (global_norm(grads[n] for n in params) if grad_norm is None
+          else grad_norm)
     clip = torch.clamp_max(
         torch.full_like(gn, cfg.grad_clip) / torch.clamp_min(gn, 1e-9), 1.0)
 

@@ -5,9 +5,39 @@ function of (params, opt_state, batch) that is jitted; here the state's
 model is a :class:`~repro_torch.models.model.LanguageModel` with
 gradients on, autograd takes the grads, and the update is written into
 the model and the float32 moments in place (eager PyTorch, so every step
-issues its own launches).  The JAX ``param_shardings`` pin the gradient
-leaves to their parameters' layout on a mesh: on one device there is
-nothing to pin, and the mesh side is ROADMAP item 14e.
+issues its own launches).
+
+On a mesh (``make_train_step(..., param_shardings=...)``, a state from
+:func:`shard_state`) the step is ZeRO-3 storage with data-parallel
+compute, and computes the function of the whole batch, as GSPMD does
+for the JAX step:
+
+  * the parameters, the moments (float32 or int8) and the error feedback
+    are held as their blocks, placed by the JAX package's rules
+    (``repro_torch.launch.sharding``), in a :class:`MeshParams`;
+  * the batch is split over the data groups by the spec of the JAX
+    embedding's constraint, ``spec_for(shape, "batch", "seq")`` (a
+    group: one coordinate of the batch axes, ``pod`` x ``data``); a batch
+    that does not divide is computed once, by the first group;
+  * each group gathers the full parameters onto its lead device (its
+    coordinate with the other axes at 0; the groups on one device share
+    one gathered copy) and runs forward and backward on its rows, the
+    masked mean CE divided by the whole batch's label count;
+  * the groups' gradients are summed in group order on the mesh's lead
+    device; compression, where on, runs on that sum; the global norm is
+    taken on it leaf by leaf, as on one device;
+  * each coordinate runs the port's AdamW on its blocks.  An int8 moment
+    is blocked in 256s along the last axis, so where a param block's last
+    axis is not whole blocks, the moment's block and the param's differ:
+    that leaf is updated in the moment's layout (each moment block with
+    the param and gradient values it covers) and the param blocks take
+    their new values from there.
+
+The ``model`` axis holds storage only: tensor-parallel compute is ROADMAP
+item 14k.  The MoE aux loss is a product of whole-batch means, so MoE
+configs raise where more than one group computes (14k too).  A data = 1
+mesh runs the one-device step's arithmetic op for op: it is bitwise
+equal to it.
 
 A batch is the JAX one: ``tokens`` (B, S) int, or ``embeds`` (B, S, d)
 where the config has ``embed_input=False``; ``labels`` (B, S) int, -1
@@ -16,23 +46,31 @@ arrays or tensors, moved to the model's device.
 """
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.models import convert
-from repro_torch.models.config import ModelConfig
+from repro_torch.core.distributed import (Sharded, gather, gather_tree,
+                                          mesh_coords, place, place_tree,
+                                          shard_slices, spec_axes,
+                                          tree_bytes, write)
+from repro_torch.launch.sharding import moment_sharding
+from repro_torch.models import convert, sharding_rules
+from repro_torch.models.config import (ATTN_MOE, ATTN_MOE_DENSE, MAMBA_MOE,
+                                       ModelConfig)
 from repro_torch.models.model import LanguageModel
 from repro_torch.train import compression as comp
 from repro_torch.train import optimizer as opt_lib
-from repro_torch.train.optimizer import OptConfig, OptState, true_div
+from repro_torch.train.optimizer import (OptConfig, OptState, QTensor,
+                                         true_div)
 
 AUX_LOSS_WEIGHT = 0.01
 IGNORE = -1
 
 
 class TrainState(NamedTuple):
-    params: LanguageModel   # the trained model; its parameters are float32
+    params: LanguageModel   # the trained model (float32), or MeshParams
     opt: OptState
     err: dict | None        # compression error feedback (or None)
     step: torch.Tensor      # 0-d int32
@@ -67,11 +105,14 @@ def _on(x, dev, dtype=None) -> torch.Tensor:
     return torch.as_tensor(x).to(device=dev, dtype=dtype)
 
 
-def loss_fn(model: LanguageModel, cfg: ModelConfig, batch: dict):
+def loss_fn(model: LanguageModel, cfg: ModelConfig, batch: dict,
+            denom: torch.Tensor | None = None):
     """Masked mean cross-entropy of the float32 log-softmax at the labels
     (clamped into the vocabulary for the gather; -1 masked), plus
     ``AUX_LOSS_WEIGHT`` times the MoE aux loss.  Returns (loss, (ce,
-    aux))."""
+    aux)).  ``denom`` (a data group's rows on a mesh) replaces the label
+    count of ``batch`` as the CE's divisor: the whole batch's, clamped at
+    1."""
     dev = model.device
     inputs = (_on(batch["tokens"], dev, torch.long) if cfg.embed_input
               else _on(batch["embeds"], dev))
@@ -82,12 +123,35 @@ def loss_fn(model: LanguageModel, cfg: ModelConfig, batch: dict):
     at = labels.clamp(0, logp.shape[-1] - 1)[..., None]
     take = torch.gather(logp, -1, at)[..., 0]
     mask = (labels != IGNORE).float()
-    ce = -(take * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    if denom is None:
+        denom = torch.clamp_min(mask.sum(), 1.0)
+    ce = -(take * mask).sum() / denom
     return ce + AUX_LOSS_WEIGHT * aux, (ce, aux)
 
 
+def _compressed(grads: dict, err: dict):
+    """compress_with_feedback over the JAX tree's leaves: each block
+    leaf's repeats concatenated (its flat blocks run across them), then
+    split back."""
+    groups = convert.leaf_groups(grads)
+    cat = {key: torch.cat([grads[n].reshape(-1) for n in names])
+           for key, names in groups.items()}
+    ecat = {key: torch.cat([err[n].reshape(-1) for n in names])
+            for key, names in groups.items()}
+    g_hat, e_new = comp.compress_with_feedback(cat, ecat)
+    out_g, out_e = {}, {}
+    for key, names in groups.items():
+        sizes = [grads[n].numel() for n in names]
+        for n, g, e in zip(names, g_hat[key].split(sizes),
+                           e_new[key].split(sizes)):
+            out_g[n] = g.view(grads[n].shape)
+            out_e[n] = e.view(grads[n].shape)
+    return out_g, out_e
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
-                    compress: bool = False, microbatch: int = 0):
+                    compress: bool = False, microbatch: int = 0,
+                    param_shardings: dict | None = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``, metrics
     ``loss``, ``ce``, ``aux`` and ``grad_norm`` as 0-d tensors on the
     device (reading one waits for the step).
@@ -95,7 +159,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
     ``microbatch > 0`` splits the batch into chunks of that many rows whose
     float32 grads are summed and then divided by their number, as the JAX
     ``lax.scan`` accumulates them: the compute / memory knob for large
-    configs."""
+    configs.
+
+    ``param_shardings`` (param name -> NamedSharding, as
+    ``launch.sharding.param_shardings`` gives them) makes it the mesh
+    step, for a state placed by them (:func:`shard_state`): gradients are
+    kept in the params' blocks, as the JAX option pins them."""
+    if param_shardings is not None:
+        return _mesh_train_step(cfg, opt_cfg, compress, microbatch,
+                                param_shardings)
 
     def grads_of(model, batch):
         params = dict(model.named_parameters())
@@ -119,31 +191,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
         loss, ce, aux = true_div(tot, n_mb)
         return loss, ce, aux, grads
 
-    def compressed(grads, err):
-        """compress_with_feedback over the JAX tree's leaves: each block
-        leaf's repeats concatenated (its flat blocks run across them),
-        then split back."""
-        groups = convert.leaf_groups(grads)
-        cat = {key: torch.cat([grads[n].reshape(-1) for n in names])
-               for key, names in groups.items()}
-        ecat = {key: torch.cat([err[n].reshape(-1) for n in names])
-                for key, names in groups.items()}
-        g_hat, e_new = comp.compress_with_feedback(cat, ecat)
-        out_g, out_e = {}, {}
-        for key, names in groups.items():
-            sizes = [grads[n].numel() for n in names]
-            for n, g, e in zip(names, g_hat[key].split(sizes),
-                               e_new[key].split(sizes)):
-                out_g[n] = g.view(grads[n].shape)
-                out_e[n] = e.view(grads[n].shape)
-        return out_g, out_e
-
     def train_step(state: TrainState, batch: dict):
         model = state.params
         loss, ce, aux, grads = grads_of(model, batch)
         err = state.err
         if compress:
-            grads, err = compressed(grads, err)
+            grads, err = _compressed(grads, err)
         params = dict(model.named_parameters())
         _, opt_state, gnorm = opt_lib.apply_updates(
             params, grads, state.opt, opt_cfg,
@@ -152,5 +205,283 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
             p.grad = None
         metrics = {"loss": loss, "ce": ce, "aux": aux, "grad_norm": gnorm}
         return TrainState(model, opt_state, err, state.step + 1), metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# the train state on a mesh
+# ---------------------------------------------------------------------------
+
+MOE_KINDS = (ATTN_MOE, ATTN_MOE_DENSE, MAMBA_MOE)
+
+
+class MeshParams:
+    """A model's parameters held on a mesh as their blocks (ZeRO-3
+    storage), and the work models the data groups compute on.
+
+    ``tensors`` maps each parameter name (the model's, in its order) to a
+    ``Sharded`` array placed by ``shardings``.  ``gathered(device)``
+    writes the whole parameters into that device's work model: one per
+    distinct device (the coordinates of ``["cuda:0"] * 8`` share one),
+    the first being the model the state was made from."""
+
+    def __init__(self, model: LanguageModel, shardings: dict):
+        named = dict(model.named_parameters())
+        if set(named) != set(shardings):
+            raise ValueError(f"shardings name {sorted(set(shardings))[:4]}"
+                             f"..., the model {sorted(named)[:4]}...")
+        self.cfg = model.cfg
+        self.shardings = {n: shardings[n] for n in named}
+        self.mesh = next(iter(shardings.values())).mesh
+        self.tensors = {n: place(p.detach(), self.shardings[n])
+                        for n, p in named.items()}
+        model.requires_grad_(True)
+        self._work = {self.mesh.lead: model.to(self.mesh.lead)}
+
+    def work_model(self, device) -> LanguageModel:
+        """The work model on ``device`` (made by copying another)."""
+        dev = torch.device(device)
+        if dev not in self._work:
+            self._work[dev] = copy.deepcopy(
+                next(iter(self._work.values()))).to(dev)
+        return self._work[dev]
+
+    @torch.no_grad()
+    def gathered(self, device) -> LanguageModel:
+        """The work model on ``device`` holding the whole parameters."""
+        model = self.work_model(device)
+        for n, p in model.named_parameters():
+            gather(self.tensors[n], out=p)
+        return model
+
+
+def _state_shardings(tree: dict, shardings: dict) -> dict:
+    """The shardings of a moment or error tree that mirrors params placed
+    by ``shardings``."""
+    return {n: moment_sharding(shardings[n], x) if isinstance(x, QTensor)
+            else shardings[n] for n, x in tree.items()}
+
+
+def shard_state(state: TrainState, shardings: dict) -> TrainState:
+    """A one-device state placed on a mesh by ``shardings`` (param name ->
+    NamedSharding): the params by them, the float32 moments and the error
+    feedback alike, int8 moments by ``moment_sharding``; ``count`` and
+    ``step`` on the mesh's lead device.  The state's model becomes the
+    lead device's work model (moved there)."""
+    params = MeshParams(state.params, shardings)
+    lead = params.mesh.lead
+
+    def placed(tree):
+        return place_tree(tree, _state_shardings(tree, shardings))
+
+    err = None if state.err is None else placed(state.err)
+    return TrainState(params, OptState(placed(state.opt.m),
+                                       placed(state.opt.v),
+                                       state.opt.count.to(lead)),
+                      err, state.step.to(lead))
+
+
+def unshard_state(state: TrainState, device=None) -> TrainState:
+    """A mesh state gathered onto one device (the mesh's lead device by
+    default), as a one-device state of its own (a copy of the work
+    model there, holding the parameters)."""
+    params = state.params
+    dev = torch.device(device) if device is not None else params.mesh.lead
+    model = copy.deepcopy(params.gathered(dev))
+
+    def whole(tree):
+        return None if tree is None else gather_tree(tree, dev)
+
+    return TrainState(model, OptState(whole(state.opt.m),
+                                      whole(state.opt.v),
+                                      state.opt.count.to(dev)),
+                      whole(state.err), state.step.to(dev))
+
+
+def reshard_state(state: TrainState, shardings: dict) -> TrainState:
+    """The state (on one device or on a mesh) placed by ``shardings``,
+    on their mesh."""
+    if convert.on_mesh(state):
+        state = unshard_state(state, next(iter(shardings.values())).mesh.lead)
+    return shard_state(state, shardings)
+
+
+def state_device_bytes(state: TrainState) -> list:
+    """Resident bytes of each mesh coordinate (``mesh.flat`` order): its
+    blocks of the params, the moments and the error feedback."""
+    trees = [state.params.tensors, state.opt.m, state.opt.v]
+    return tree_bytes(*trees, *([state.err] if state.err is not None
+                                else []))
+
+
+def _group_leads(mesh, axes) -> list:
+    """The lead device of each data group: the coordinates of ``axes``
+    (the batch's split, major first) in batch order, each with every
+    other axis at 0."""
+    sizes = mesh.shape
+    leads = []
+    for c, d in zip(mesh_coords(mesh), mesh.flat):
+        if all(v == 0 for a, v in c.items() if a not in axes):
+            pos = 0
+            for a in axes:
+                pos = pos * sizes[a] + c[a]
+            leads.append((pos, d))
+    return [d for _, d in sorted(leads, key=lambda t: t[0])]
+
+
+def _moment_region(x: Sharded, m: QTensor, coord: dict, block: int
+                   ) -> tuple:
+    """The param elements the int8 moment block of coordinate ``coord``
+    covers: its lead dims' slices and, on the last axis, its blocks'
+    columns (the last block cut at the param's extent)."""
+    idx = shard_slices(m.codes.shape, m.codes.sharding, coord)
+    b = idx[-2]
+    return idx[:-2] + (slice(b.start * block,
+                             min(b.stop * block, x.shape[-1])),)
+
+
+def _mesh_train_step(cfg, opt_cfg, compress, microbatch, param_shardings):
+    moe = any(k in MOE_KINDS for k in cfg.block_pattern)
+
+    def grads_of(params: MeshParams, batch: dict):
+        """The whole batch's loss parts and summed gradients (whole, on
+        the mesh's lead device)."""
+        mesh = params.mesh
+        lead = mesh.lead
+        n_rows = len(batch["labels"])
+        size = microbatch or n_rows
+        n_mb = n_rows // size
+        spec = sharding_rules.spec_for((size,) + tuple(
+            batch["labels"].shape[1:]), "batch", "seq", mesh=mesh)
+        leads = _group_leads(mesh, spec_axes(spec[0]))
+        if moe and len(leads) > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: the MoE aux loss is a product of whole-batch "
+                f"means, so an MoE config trains on a mesh with one data "
+                f"group computing (ROADMAP item 14k); this batch splits "
+                f"over {len(leads)}")
+        rows = size // len(leads)
+        denoms = []
+        for i in range(n_mb):
+            labels = _on(batch["labels"][i * size:(i + 1) * size], lead,
+                         torch.long)
+            denoms.append(torch.clamp_min((labels != IGNORE).float().sum(),
+                                          1.0))
+        models, parts, total = {}, [[] for _ in range(n_mb)], None
+        for g, dev in enumerate(leads):
+            if dev not in models:
+                models[dev] = params.gathered(dev)
+            named = dict(models[dev].named_parameters())
+            for p in named.values():
+                p.grad = None
+            for i in range(n_mb):
+                lo = i * size + g * rows
+                part = {k: v[lo:lo + rows] for k, v in batch.items()}
+                loss, (ce, aux) = loss_fn(models[dev], cfg, part,
+                                          denoms[i].to(dev))
+                loss.backward()              # sums into .grad, float32
+                parts[i].append(torch.stack([loss, ce, aux]).detach()
+                                .to(lead))
+            grads = {n: p.grad.to(lead) for n, p in named.items()}
+            for p in named.values():
+                p.grad = None
+            total = grads if total is None else {
+                n: total[n] + grads[n] for n in total}
+        tot = None
+        for i in range(n_mb):
+            part = parts[i][0]
+            for more in parts[i][1:]:
+                part = part + more
+            tot = part if tot is None else tot + part
+        if microbatch:
+            total = {n: true_div(g, n_mb) for n, g in total.items()}
+            tot = true_div(tot, n_mb)
+        loss, ce, aux = tot
+        return loss, ce, aux, total, models[lead]
+
+    @torch.no_grad()
+    def update(params: MeshParams, grads: dict, opt: OptState, gn,
+               whole: LanguageModel) -> OptState:
+        """Each coordinate's AdamW on its blocks; a leaf whose int8 moment
+        blocks do not line up with its param blocks is updated in the
+        moment's layout (from the whole params of ``whole``)."""
+        mesh = params.mesh
+        ranks = convert.jax_ranks(dict(whole.named_parameters()))
+        wparams = dict(whole.named_parameters())
+        new = {"m": {n: [] for n in params.tensors},
+               "v": {n: [] for n in params.tensors}}
+        updated = {}            # misaligned leaf -> its new whole values
+        for i, (c, dev) in enumerate(zip(mesh_coords(mesh), mesh.flat)):
+            p_c, g_c, m_c, v_c = {}, {}, {}, {}
+            count, gn_c = opt.count.to(dev), gn.to(dev)
+            for n, x in params.tensors.items():
+                idx = shard_slices(x.shape, x.sharding, c)
+                m, v = opt.m[n], opt.v[n]
+                if not isinstance(m, QTensor):
+                    p_c[n], g_c[n] = x.shards[i], grads[n][idx].to(dev)
+                    m_c[n], v_c[n] = m.shards[i], v.shards[i]
+                    continue
+                region = _moment_region(x, m, c, opt_cfg.q_block)
+                shape = tuple(s.stop - s.start for s in region)
+                mq = QTensor(m.codes.shards[i], m.scales.shards[i], shape)
+                vq = QTensor(v.codes.shards[i], v.scales.shards[i], shape)
+                if region == idx:
+                    p_c[n], g_c[n] = x.shards[i], grads[n][idx].to(dev)
+                    m_c[n], v_c[n] = mq, vq
+                    continue
+                p_r = wparams[n][region].to(dev, copy=True)
+                _, st, _ = opt_lib.apply_updates(
+                    {n: p_r}, {n: grads[n][region].to(dev)},
+                    OptState({n: mq}, {n: vq}, count), opt_cfg,
+                    ranks={n: ranks[n]}, grad_norm=gn_c)
+                if n not in updated:
+                    updated[n] = torch.empty_like(wparams[n])
+                updated[n][region] = p_r.to(updated[n].device)
+                new["m"][n].append(st.m[n])
+                new["v"][n].append(st.v[n])
+            _, st, _ = opt_lib.apply_updates(
+                p_c, g_c, OptState(m_c, v_c, count), opt_cfg, ranks=ranks,
+                grad_norm=gn_c)
+            for n in p_c:
+                new["m"][n].append(st.m[n])
+                new["v"][n].append(st.v[n])
+        for n, whole_n in updated.items():
+            write(params.tensors[n], whole_n)
+
+        def rebuilt(tree, which):
+            out = {}
+            for n, x in tree.items():
+                parts = new[which][n]
+                if isinstance(x, QTensor):
+                    out[n] = QTensor(
+                        Sharded([q.codes for q in parts], x.codes.sharding,
+                                x.codes.shape),
+                        Sharded([q.scales for q in parts], x.scales.sharding,
+                                x.scales.shape), x.shape)
+                else:
+                    out[n] = Sharded(parts, x.sharding, x.shape)
+            return out
+
+        return OptState(rebuilt(opt.m, "m"), rebuilt(opt.v, "v"),
+                        opt.count + 1)
+
+    def train_step(state: TrainState, batch: dict):
+        params = state.params
+        if (not isinstance(params, MeshParams)
+                or params.shardings != {n: param_shardings[n]
+                                        for n in params.tensors}):
+            raise ValueError("the mesh step takes a state placed by its "
+                             "param_shardings (shard_state)")
+        loss, ce, aux, grads, whole = grads_of(params, batch)
+        err = state.err
+        if compress:
+            grads, e_new = _compressed(grads, gather_tree(err))
+            for n, x in err.items():
+                write(x, e_new[n])
+        gn = opt_lib.global_norm(grads[n] for n in params.tensors)
+        opt = update(params, grads, state.opt, gn, whole)
+        metrics = {"loss": loss, "ce": ce, "aux": aux, "grad_norm": gn}
+        return TrainState(params, opt, err, state.step + 1), metrics
 
     return train_step

@@ -97,6 +97,13 @@ def test_training_modules_are_scanned():
             "examples/data_discovery_torch.py"} <= names
 
 
+def test_mesh_training_modules_are_scanned():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/models/sharding_rules.py",
+            "src/repro_torch/launch/sharding.py",
+            "src/repro_torch/launch/mesh.py"} <= names
+
+
 def test_cpu_tensors_take_the_plain_path():
     ops.reset_launches()
     rng = np.random.default_rng(0)

@@ -91,8 +91,9 @@ def test_trainer_compress_grads_and_synthetic_corpus(tmp_path):
 
 
 def test_trainer_refuses_what_it_cannot_run(tmp_path):
-    with pytest.raises(NotImplementedError, match="14e"):
-        train.main(SMALL + ["--mesh", "test", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="devices="):
+        train.run(SMALL + ["--mesh", "test", "--ckpt-dir", str(tmp_path)],
+                  devices=["cpu"] * 4)
     for arch in ("musicgen_medium", "llama3_2_vision_11b"):
         with pytest.raises(ValueError, match="token ids only"):
             train.main(["--device", "cpu", "--reduced", "--arch", arch,
