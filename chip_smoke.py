@@ -226,6 +226,16 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      bytes equal to the specs' prediction, and the mesh checkpoint
      restored onto one device, equal to the mesh state leaf for leaf, its
      step 11 within ``MESH_LOSS_ATOL`` of phase 19's.
+ 21. the dry run (``launch.specs`` + ``launch.dryrun``) of the cells the
+     card ran above, on meta tensors: phase 19's one-device train step,
+     phase 20's (4, 2) step over ``["cuda:0"] * 8`` and phase 17's decode
+     step; gates: the records' resident bytes equal the card's (phase
+     20's 174,892,032 a coordinate), phase 19's FLOPs equal the smoke's
+     ``model_flops``, each predicted peak against one step's on the card
+     (``DRYRUN_TEMP_RTOL``; on (4, 2) the lead's plus one gradient
+     set), no kernel launched, the phase within
+     ``DRYRUN_BUDGET_S``; the roofline's bound (H100 terms) printed
+     beside the step ms the card measured.
 
 The second-to-last line is the kernel table as JSON (each row's
 ``launches`` from the local path, ``sharded_launches`` per phase-14 path
@@ -3256,12 +3266,15 @@ INT8_LOSS_ATOL = 0.05
 MAMBA_BATCH = (2, 256)
 
 
-def model_flops(cfg, n_params, B, S):
-    """The step's model FLOPs: 6 N per token (forward and backward of the
-    products) and the attention's two S x S products per layer (forward 2,
-    backward 4 of 2 B S^2 d each; the port computes the whole masked
-    square)."""
-    return 6 * n_params * B * S + 12 * cfg.n_layers * B * S * S * cfg.d_model
+def model_flops(cfg, model, B, S):
+    """The step's model FLOPs, op by op as the port computes them: 6 per
+    token and matrix weight (forward and backward of the products; the
+    tied table once, as the head: the embedding is a gather) and the
+    attention's two S x S products per layer (forward 2, backward 4 of
+    2 B S^2 d each; the port computes the whole masked square).  The norm
+    scales (vectors) are elementwise: no product."""
+    n_mat = sum(p.numel() for p in model.parameters() if p.ndim >= 2)
+    return 6 * n_mat * B * S + 12 * cfg.n_layers * B * S * S * cfg.d_model
 
 
 def state_bytes(opt):
@@ -3458,7 +3471,10 @@ def train_phase(dev, rows, card_line):
               f"parameters {n_params}")
         steady = np.asarray(run.step_s[TRAIN_WARM:])
         step_ms = float(np.median(steady)) * 1e3
-        flops = model_flops(cfg, n_params, B, S)
+        flops = model_flops(cfg, model, B, S)
+        resident = (sum(p.numel() * p.element_size()
+                        for p in model.parameters())
+                    + state_bytes(run.state.opt))
         ops.reset_launches()
         step_fn = ts.make_train_step(cfg, opt)
         batch = run.pipeline.next_batch()
@@ -3500,7 +3516,9 @@ def train_phase(dev, rows, card_line):
         docs = run.pipeline.docs
         ref = {"losses": losses[:MESH_STEPS + 1], "docs": docs,
                "params": ckpt_params(tmp / "a" / cfg.name
-                                     / f"step_{MESH_STEPS:08d}")}
+                                     / f"step_{MESH_STEPS:08d}"),
+               "step_ms": step_ms, "flops": flops,
+               "resident_bytes": resident}
         del run, state, model
         for r in rows:
             r["train_launches"] = launches[r["name"]]
@@ -3775,6 +3793,198 @@ def mesh_train_phase(dev, rows, ref, card_line):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    return {"device_bytes": got, "step_ms": step_ms}
+
+# ---------------------------------------------------------------------------
+# phase 21: the dry run and the roofline against what the card ran
+# ---------------------------------------------------------------------------
+
+#: the dry run's predicted peak against the card's peak allocated bytes
+#: over one step above what was allocated before it, within 10 % (1 MiB
+#: below 10 MiB), the card adding its allocator's rounding and its
+#: kernels' scratch.  A one-device cell predicts its record's temp_bytes;
+#: the (4, 2) mesh over one card the lead coordinate's temp_bytes plus one
+#: whole gradient set: on one card the later groups' passes run beside
+#: the running gradient sum
+DRYRUN_TEMP_RTOL = 0.10
+DRYRUN_TEMP_ATOL = 1 << 20
+DRYRUN_BUDGET_S = 20.0
+
+
+def step_peak(fn):
+    """(fn's result, the card's peak allocated bytes during it above what
+    was allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def plan_state_bytes(plan) -> list:
+    """Each coordinate's bytes of a train plan's params and moments."""
+    from repro_torch.launch.specs import block_bytes
+
+    n = len(plan.mesh.flat)
+    per = [0] * n
+    for name, t in plan.abstract_args.items():
+        if name.startswith(("params/", "opt.")):
+            per = [u + v for u, v in zip(
+                per, block_bytes(t, plan.in_shardings[name], n))]
+    return per
+
+
+def temp_check(name, rec, measured, extra=0):
+    """The predicted peak (the record's temp_bytes plus ``extra``) against
+    the card's measured peak."""
+    want = rec["memory"]["temp_bytes"] + extra
+    check(abs(measured - want) <= max(DRYRUN_TEMP_RTOL * want,
+                                      DRYRUN_TEMP_ATOL),
+          f"dry run {name}: predicted peak {want} B, the card's {measured} B")
+    return {"predicted_temp_bytes": rec["memory"]["temp_bytes"],
+            "predicted_peak_bytes": want, "measured_peak_bytes": measured,
+            "ratio": measured / want}
+
+
+def dryrun_phase(dev, train_ref, mesh_ref, lm_ref, card_line):
+    """Phase 21.  The dry run (``launch.specs`` + ``launch.dryrun``) of
+    the cells the card ran in this call, on meta tensors: phase 19's
+    one-device train step (full spadas_trajlm, 8 x 256, remat off, float32
+    states), phase 20's (4, 2) mesh step over ``["cuda:0"] * 8`` and phase
+    17's decode step (8 prompts, bf16 cache of 96 positions).  Gates: the
+    records' resident bytes equal what the card holds (phase 19's state,
+    phase 20's 174,892,032 a coordinate, the decode's params and caches);
+    the phase-19 FLOPs equal the smoke's op-by-op count; each predicted
+    peak against one step's on the card (``temp_check``); no kernel
+    launched; the phase within ``DRYRUN_BUDGET_S``.  Prints the roofline
+    of each record (H100 terms) beside the step ms the card measured."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline, specs
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    cfg = dataclasses.replace(configs.get("spadas_trajlm"), remat=False)
+    opt = opt_lib.OptConfig(lr=3e-4, warmup_steps=20)     # the trainer's
+    B, S = 8, 256
+
+    def meta_record(label, cell, devices):
+        shape = (4, 2) if len(devices) == 8 else (1, 1)
+        mesh = dist.grid_mesh(shape, ("data", "model"), devices, label)
+        plan = specs.make_plan(cfg, label, mesh, shapes={label: cell})
+        return plan, dryrun.record(plan, cfg, cfg.name, label, label,
+                                   *cell[1:])
+
+    def roof(rec, measured_ms):
+        a = roofline.analyze(rec)
+        bound_ms = max(a["compute_s"], a["memory_s"],
+                       a["collective_s"]) * 1e3
+        return {"compute_ms": a["compute_s"] * 1e3,
+                "memory_ms": a["memory_s"] * 1e3,
+                "collective_ms": a["collective_s"] * 1e3,
+                "bound_ms": bound_ms, "bottleneck": a["bottleneck"],
+                "measured_ms": measured_ms,
+                "bound_share_of_measured": bound_ms / measured_ms,
+                "roofline_fraction": a["roofline_fraction"]}
+
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             dtype=torch.int32, device=dev)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    out = {"card": card_line}
+
+    # phase 19's cell, one device
+    plan, rec = meta_record("train_1x1", ("train", B, S), [dev])
+    check(rec["flops_per_device"] == train_ref["flops"], f"dry-run FLOPs "
+          f"{rec['flops_per_device']}, phase 19's count {train_ref['flops']}")
+    model = LanguageModel(cfg, device=dev, seed=0, init_on_device=True)
+    state = ts.train_state_for(model, opt)
+    held = (sum(p.numel() * p.element_size() for p in model.parameters())
+            + state_bytes(state.opt))
+    parts = rec["memory"]["argument_parts"]
+    check(parts["params"] + parts["opt"] == held == train_ref[
+        "resident_bytes"], f"dry-run state bytes {parts}, the card's {held}, "
+        f"phase 19's {train_ref['resident_bytes']}")
+    step = ts.make_train_step(cfg, opt)
+    state, _ = step(state, batch)                           # warm
+    (state, _), peak = step_peak(lambda: step(state, batch))
+    out["train_1x1"] = {
+        "flops_per_device": rec["flops_per_device"],
+        "flop_counts": rec["flop_counts"],
+        "phase19_model_flops": train_ref["flops"],
+        "argument_bytes": rec["memory"]["argument_bytes"],
+        "state_bytes": held, "bytes_per_device": rec["bytes_per_device"],
+        "trace_s": rec["trace_s"],
+        "temp": temp_check("train_1x1", rec, peak),
+        "roofline": roof(rec, train_ref["step_ms"])}
+    del state, model, step
+
+    # phase 20's cell: (4, 2) over eight entries of the card
+    plan, rec = meta_record("train_4x2", ("train", B, S), MESH_DEVICES)
+    per = plan_state_bytes(plan)
+    check(per == mesh_ref["device_bytes"] == [174_892_032] * 8,
+          f"dry-run bytes a coordinate {per}, phase 20's "
+          f"{mesh_ref['device_bytes']}")
+    model = LanguageModel(cfg, device=dev, seed=0, init_on_device=True)
+    grad_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    mesh = plan.mesh
+    p_shard = sh.param_shardings(dict(model.named_parameters()), mesh)
+    state = ts.shard_state(ts.train_state_for(model, opt), p_shard)
+    check(ts.state_device_bytes(state) == per, "placed bytes")
+    step = ts.make_train_step(cfg, opt, param_shardings=p_shard)
+    state, _ = step(state, batch)                           # warm
+    (state, _), peak = step_peak(lambda: step(state, batch))
+    out["train_4x2"] = {
+        "flops_per_device": rec["flops_per_device"],
+        "flops_total": rec["flops_total"], "compute": rec["compute"],
+        "state_bytes_per_coordinate": per,
+        "argument_bytes": rec["memory"]["argument_bytes"],
+        "work_bytes": rec["memory"]["work_bytes"],
+        "collectives_moved_bytes_per_coordinate":
+            rec["collective_moved_bytes_per_coordinate"],
+        "trace_s": rec["trace_s"],
+        "temp": temp_check("train_4x2", rec, peak, extra=grad_bytes),
+        "roofline": roof(rec, mesh_ref["step_ms"])}
+    del state, model, step
+
+    # phase 17's decode step: 8 prompts, a bf16 cache of 96 positions
+    T = LM_PROMPT + LM_GEN
+    plan, rec = meta_record("decode_1x1", ("decode", LM_BATCH, T), [dev])
+    model = LanguageModel(configs.get("spadas_trajlm"), device=dev, seed=0,
+                          init_on_device=True)
+    caches = model.init_cache(LM_BATCH, T, "bf16")
+    held = (sum(p.numel() * p.element_size() for p in model.parameters())
+            + sum(v.numel() * v.element_size() for c in caches
+                  for v in c.values()))
+    parts = rec["memory"]["argument_parts"]
+    check(parts["params"] + parts["caches"] == held, f"dry-run decode "
+          f"bytes {parts}, the card's {held}")
+    tok = tokens[:LM_BATCH, :1]
+    model.decode_step(tok, caches, T - 1)                   # warm
+    _, peak = step_peak(lambda: model.decode_step(tok, caches, T - 1))
+    out["decode_1x1"] = {
+        "flops_per_device": rec["flops_per_device"],
+        "argument_bytes": rec["memory"]["argument_bytes"],
+        "params_and_caches_bytes": held, "trace_s": rec["trace_s"],
+        "temp": temp_check("decode_1x1", rec, peak),
+        "roofline": roof(rec, lm_ref["bf16"]["decode_ms_per_token"])}
+    del model, caches
+
+    check(not any(ops.LAUNCHES.values()), f"the dry-run phase launched a "
+          f"search kernel: {dict(ops.LAUNCHES)}")
+    phase_s = time.perf_counter() - t0
+    out["phase_s"] = phase_s
+    log("dryrun: " + json.dumps(out))
+    check(phase_s <= DRYRUN_BUDGET_S, f"phase 21 took {phase_s:.1f} s")
+    log(f"phase 21: {phase_s:.1f} s")
 
 
 def main() -> int:
@@ -4149,7 +4359,7 @@ def main() -> int:
     # ---- 17. routing and autotune, then the trajectory LM --------------
     t17 = time.perf_counter()
     tune_phase(repo, q_sets, res, lat, rows, k, reps)
-    lm_phase(repo, datasets, smi[0])
+    lm_ref = lm_phase(repo, datasets, smi[0])
     log(f"phase 17: {time.perf_counter() - t17:.1f} s")
 
     # ---- 18. the LM's MoE, Mamba-2, hybrid, cross and embedding kinds ---
@@ -4161,7 +4371,10 @@ def main() -> int:
     train_ref = train_phase(dev, rows, smi[0])
 
     # ---- 20. training on the test mesh, eight coordinates on the card ---
-    mesh_train_phase(dev, rows, train_ref, smi[0])
+    mesh_ref = mesh_train_phase(dev, rows, train_ref, smi[0])
+
+    # ---- 21. the dry run and the roofline against the card --------------
+    dryrun_phase(dev, train_ref, mesh_ref, lm_ref, smi[0])
     del train_ref
     rows += j_rows
     log(f"smoke: {time.perf_counter() - t_start:.1f} s in all")

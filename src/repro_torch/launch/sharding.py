@@ -5,7 +5,8 @@ Counterpart of ``repro.launch.sharding``, rule for rule:
     'data' on the other dim; replicated where a dim does not divide;
   * optimizer moments mirror the param shardings (int8 codes: the
     param's last-axis split moves to the blocks dim);
-  * batch: ('pod', 'data') on the batch dim.
+  * batch: ('pod', 'data') on the batch dim; KV caches likewise, with the
+    time axis sharded over 'model' for the long-context cells.
 
 The rules key off the JAX package's leaf PATHS.  A port parameter maps to
 its JAX leaf by ``models.convert.jax_key``; a block leaf is stacked over
@@ -13,9 +14,9 @@ the pattern's repeats there, with the repeat dim never split, so the
 port's per-repeat tensor takes the JAX spec without its first entry.
 
 The placement itself (``place``, ``gather``, the spec and sharding types)
-is in ``repro_torch.core.distributed`` and is re-exported here.  The JAX
-package's ``cache_sharding`` (KV caches of the dry-run cells) comes with
-its caller, ROADMAP item 14j.
+is in ``repro_torch.core.distributed`` and is re-exported here.
+``cache_sharding`` places the decode caches of the dry-run's serving
+cells (``launch/specs.py``).
 """
 from __future__ import annotations
 
@@ -139,3 +140,22 @@ def spec_for_batch_leaf(shape: tuple, mesh: Mesh) -> P:
         return P(ba, *([None] * (len(shape) - 1)))
     return P(*([None] * len(shape)))
 
+
+
+def cache_sharding(shape: tuple, mesh: Mesh, *, shard_time: bool) -> P:
+    """KV cache (R, B, T, KH, hd) / SSM state (R, B, H, P, N) sharding:
+    the batch axes on B where they divide; on a 5-d leaf the model axis on
+    the time axis (``shard_time``, where it divides and T exceeds it) or
+    else on the kv heads; on a 4-d leaf (int8 KV scales (R, B, T, KH),
+    conv state (R, B, W-1, C)) likewise on dim 2 or else dim 3."""
+    ba = batch_axes(mesh)
+    bsz = math.prod(mesh.shape[a] for a in ba)
+    b_ax = ba if (len(shape) > 1 and shape[1] % bsz == 0) else None
+    spec = [None, b_ax] + [None] * (len(shape) - 2)
+    if len(shape) in (4, 5):
+        m = mesh.shape["model"]
+        if shard_time and shape[2] % m == 0 and shape[2] > m:
+            spec[2] = "model"
+        elif shape[3] % m == 0:
+            spec[3] = "model"
+    return P(*spec)

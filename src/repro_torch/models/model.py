@@ -49,6 +49,10 @@ from repro_torch.models.config import (ATTN, ATTN_MOE, ATTN_MOE_DENSE, CROSS,
                                        MAMBA, MAMBA_MOE, ModelConfig)
 
 ATTN_KINDS = (ATTN, ATTN_MOE, ATTN_MOE_DENSE, CROSS)
+#: the parameters the JAX package makes float32 whatever ``init_params``'
+#: dtype: the MoE router, the SSM's per-head ``A_log``, ``D`` and
+#: ``dt_bias``, and the cross-attention gate
+FLOAT32_LEAVES = ("router", "A_log", "D", "dt_bias", "xgate")
 SSM_KINDS = (MAMBA, MAMBA_MOE)
 KINDS = ATTN_KINDS + SSM_KINDS
 
@@ -175,12 +179,15 @@ class LanguageModel(nn.Module):
     with ``init_on_device=True``, by a generator on ``device`` itself
     (other weights for the same seed; a full-width MoE's billions of
     normals take seconds there and a minute on the host).  Parameters are
-    float32, as the JAX package's; activations are bf16.  On the ``meta``
-    device the parameters are shapes without values (placement plans at
-    full width)."""
+    float32, as the JAX package's, or ``param_dtype`` (bf16 masters for
+    the largest configs, as ``init_params(dtype=...)``: each weight drawn
+    in float32 and cast, ``FLOAT32_LEAVES`` kept float32); activations
+    are bf16.  On the ``meta`` device the parameters are shapes without
+    values (placement plans and dry runs at full width)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
-                 init_on_device: bool = False):
+                 init_on_device: bool = False,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
@@ -196,6 +203,10 @@ class LanguageModel(nn.Module):
                 nn.ModuleList(Block(kind, cfg, gen)
                               for kind in cfg.block_pattern)
                 for _ in range(cfg.n_repeats))
+        if param_dtype != torch.float32:
+            for name, p in self.named_parameters():
+                if name.rsplit(".", 1)[-1] not in FLOAT32_LEAVES:
+                    p.data = p.data.to(param_dtype)
         self.requires_grad_(False)
         self.to(dev)
 

@@ -33,6 +33,10 @@ for the JAX step:
     the param and gradient values it covers) and the param blocks take
     their new values from there.
 
+The mesh step's pieces (``data_groups``, ``group_pass``,
+``coord_update``) are module functions, so that the dry run
+(``launch/specs.py``) runs them for the busiest coordinate alone.
+
 The ``model`` axis holds storage only: tensor-parallel compute is ROADMAP
 item 14k.  The MoE aux loss is a product of whole-batch means, so MoE
 configs raise where more than one group computes (14k too).  A data = 1
@@ -70,7 +74,8 @@ IGNORE = -1
 
 
 class TrainState(NamedTuple):
-    params: LanguageModel   # the trained model (float32), or MeshParams
+    params: LanguageModel   # the trained model (float32 or bf16), or
+                            # MeshParams
     opt: OptState
     err: dict | None        # compression error feedback (or None)
     step: torch.Tensor      # 0-d int32
@@ -93,11 +98,16 @@ def train_state_for(model: LanguageModel, opt_cfg: OptConfig, *,
 
 
 def init_train_state(cfg: ModelConfig, opt_cfg: OptConfig, *, device=None,
-                     seed: int = 0, compress: bool = False) -> TrainState:
+                     seed: int = 0, compress: bool = False,
+                     param_dtype: torch.dtype = torch.float32) -> TrainState:
     """The model of ``cfg`` with weights from a ``torch.Generator``
-    seeded with ``seed`` (see ``LanguageModel``), and a fresh state, on
-    ``cuda`` unless ``device`` names another (raises without a card)."""
-    return train_state_for(LanguageModel(cfg, device=device, seed=seed),
+    seeded with ``seed`` (see ``LanguageModel``), its parameters in
+    ``param_dtype`` (bf16 masters for the largest configs, as the JAX
+    ``init_train_state(param_dtype=...)``; the moments and the error
+    feedback stay float32 or int8), and a fresh state, on ``cuda`` unless
+    ``device`` names another (raises without a card)."""
+    return train_state_for(LanguageModel(cfg, device=device, seed=seed,
+                                         param_dtype=param_dtype),
                            opt_cfg, compress=compress)
 
 
@@ -163,8 +173,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
 
     ``param_shardings`` (param name -> NamedSharding, as
     ``launch.sharding.param_shardings`` gives them) makes it the mesh
-    step, for a state placed by them (:func:`shard_state`): gradients are
-    kept in the params' blocks, as the JAX option pins them."""
+    step, for a state placed by them (:func:`shard_state`): the data
+    groups' whole gradients are summed at the mesh's lead, and each
+    coordinate updates its blocks from that sum."""
     if param_shardings is not None:
         return _mesh_train_step(cfg, opt_cfg, compress, microbatch,
                                 param_shardings)
@@ -315,19 +326,32 @@ def state_device_bytes(state: TrainState) -> list:
                                 else []))
 
 
-def _group_leads(mesh, axes) -> list:
-    """The lead device of each data group: the coordinates of ``axes``
-    (the batch's split, major first) in batch order, each with every
-    other axis at 0."""
+def _group_lead_coords(mesh, axes) -> list:
+    """The coordinate index (``mesh.flat`` order) of each data group's
+    lead: the coordinates of ``axes`` (the batch's split, major first) in
+    batch order, each with every other axis at 0."""
     sizes = mesh.shape
     leads = []
-    for c, d in zip(mesh_coords(mesh), mesh.flat):
+    for i, c in enumerate(mesh_coords(mesh)):
         if all(v == 0 for a, v in c.items() if a not in axes):
             pos = 0
             for a in axes:
                 pos = pos * sizes[a] + c[a]
-            leads.append((pos, d))
-    return [d for _, d in sorted(leads, key=lambda t: t[0])]
+            leads.append((pos, i))
+    return [i for _, i in sorted(leads)]
+
+
+def data_groups(mesh, labels_shape, microbatch: int = 0) -> tuple:
+    """How the mesh step splits a batch whose labels have
+    ``labels_shape``: (the coordinate index of each data group's lead, in
+    batch order; the rows each group computes of a microbatch).  The split
+    is the spec of the JAX embedding's constraint on a microbatch; a
+    batch that does not divide is one group's."""
+    size = microbatch or labels_shape[0]
+    spec = sharding_rules.spec_for((size,) + tuple(labels_shape[1:]),
+                                   "batch", "seq", mesh=mesh)
+    leads = _group_lead_coords(mesh, spec_axes(spec[0]))
+    return leads, size // len(leads)
 
 
 def _moment_region(x: Sharded, m: QTensor, coord: dict, block: int
@@ -341,6 +365,99 @@ def _moment_region(x: Sharded, m: QTensor, coord: dict, block: int
                              min(b.stop * block, x.shape[-1])),)
 
 
+def group_pass(model: LanguageModel, cfg, batch: dict, g: int, rows: int,
+               size: int, denoms: list) -> list:
+    """Data group ``g``'s forward and backward on its ``rows`` rows of
+    each microbatch (``size`` rows a microbatch, one CE divisor each in
+    ``denoms``), its gradients summed into the model's ``.grad``.  Returns
+    each microbatch's (loss, ce, aux), stacked, on the model's device."""
+    for p in model.parameters():
+        p.grad = None
+    out = []
+    for i, denom in enumerate(denoms):
+        lo = i * size + g * rows
+        part = {k: v[lo:lo + rows] for k, v in batch.items()}
+        loss, (ce, aux) = loss_fn(model, cfg, part, denom.to(model.device))
+        loss.backward()                      # sums into .grad
+        out.append(torch.stack([loss, ce, aux]).detach())
+    return out
+
+
+def ce_divisors(labels, size: int, device) -> list:
+    """Each microbatch's CE divisor on ``device`` (``size`` rows a
+    microbatch): its labels that count, at least 1.  Every group divides
+    its CE sum by its microbatch's, so the groups' parts add up to the
+    whole microbatch's mean."""
+    out = []
+    for i in range(len(labels) // size):
+        lab = _on(labels[i * size:(i + 1) * size], device, torch.long)
+        out.append(torch.clamp_min((lab != IGNORE).float().sum(), 1.0))
+    return out
+
+
+def finish_grads(total: dict, n_mb: int | None, err: dict | None) -> tuple:
+    """The mesh step's gradients after the groups' sum, on the lead:
+    divided by the number of microbatches ``n_mb`` (None: the step does
+    not microbatch), compressed with error feedback where ``err`` (the
+    whole error tensors) is given, and the global norm of what AdamW then
+    takes, as the one-device step takes it.  Returns (grads, the new
+    whole error or None, the norm)."""
+    order = list(total)
+    if n_mb is not None:
+        total = {n: true_div(g, n_mb) for n, g in total.items()}
+    e_new = None
+    if err is not None:
+        total, e_new = _compressed(total, err)
+    return total, e_new, opt_lib.global_norm(total[n] for n in order)
+
+
+@torch.no_grad()
+def coord_update(tensors: dict, grads: dict, opt: OptState, gn, wparams:
+                 dict, ranks: dict, opt_cfg: OptConfig, i: int, c: dict,
+                 dev, updated: dict) -> tuple:
+    """Coordinate ``i`` (at ``c``, on ``dev``) of the mesh step's AdamW on
+    its blocks of ``tensors`` (name -> Sharded params), from the whole
+    summed ``grads`` and the whole params ``wparams`` on the lead device.
+    A leaf whose int8 moment blocks do not line up with its param blocks
+    is updated in the moment's layout: the new values of the region this
+    coordinate's moment block covers are written into ``updated[name]``
+    (a whole tensor, made at the first such region).  Returns (name -> its
+    new m part, name -> its new v part)."""
+    p_c, g_c, m_c, v_c = {}, {}, {}, {}
+    new_m, new_v = {}, {}
+    count, gn_c = opt.count.to(dev), gn.to(dev)
+    for n, x in tensors.items():
+        idx = shard_slices(x.shape, x.sharding, c)
+        m, v = opt.m[n], opt.v[n]
+        if not isinstance(m, QTensor):
+            p_c[n], g_c[n] = x.shards[i], grads[n][idx].to(dev)
+            m_c[n], v_c[n] = m.shards[i], v.shards[i]
+            continue
+        region = _moment_region(x, m, c, opt_cfg.q_block)
+        shape = tuple(s.stop - s.start for s in region)
+        mq = QTensor(m.codes.shards[i], m.scales.shards[i], shape)
+        vq = QTensor(v.codes.shards[i], v.scales.shards[i], shape)
+        if region == idx:
+            p_c[n], g_c[n] = x.shards[i], grads[n][idx].to(dev)
+            m_c[n], v_c[n] = mq, vq
+            continue
+        p_r = wparams[n][region].to(dev, copy=True)
+        _, st, _ = opt_lib.apply_updates(
+            {n: p_r}, {n: grads[n][region].to(dev)},
+            OptState({n: mq}, {n: vq}, count), opt_cfg,
+            ranks={n: ranks[n]}, grad_norm=gn_c)
+        if n not in updated:
+            updated[n] = torch.empty_like(wparams[n])
+        updated[n][region] = p_r.to(updated[n].device)
+        new_m[n], new_v[n] = st.m[n], st.v[n]
+    _, st, _ = opt_lib.apply_updates(
+        p_c, g_c, OptState(m_c, v_c, count), opt_cfg, ranks=ranks,
+        grad_norm=gn_c)
+    for n in p_c:
+        new_m[n], new_v[n] = st.m[n], st.v[n]
+    return new_m, new_v
+
+
 def _mesh_train_step(cfg, opt_cfg, compress, microbatch, param_shardings):
     moe = any(k in MOE_KINDS for k in cfg.block_pattern)
 
@@ -352,42 +469,29 @@ def _mesh_train_step(cfg, opt_cfg, compress, microbatch, param_shardings):
         n_rows = len(batch["labels"])
         size = microbatch or n_rows
         n_mb = n_rows // size
-        spec = sharding_rules.spec_for((size,) + tuple(
-            batch["labels"].shape[1:]), "batch", "seq", mesh=mesh)
-        leads = _group_leads(mesh, spec_axes(spec[0]))
+        coords, rows = data_groups(mesh, batch["labels"].shape, microbatch)
+        leads = [mesh.flat[i] for i in coords]
         if moe and len(leads) > 1:
             raise NotImplementedError(
                 f"{cfg.name}: the MoE aux loss is a product of whole-batch "
                 f"means, so an MoE config trains on a mesh with one data "
                 f"group computing (ROADMAP item 14k); this batch splits "
                 f"over {len(leads)}")
-        rows = size // len(leads)
-        denoms = []
-        for i in range(n_mb):
-            labels = _on(batch["labels"][i * size:(i + 1) * size], lead,
-                         torch.long)
-            denoms.append(torch.clamp_min((labels != IGNORE).float().sum(),
-                                          1.0))
+        denoms = ce_divisors(batch["labels"], size, lead)
         models, parts, total = {}, [[] for _ in range(n_mb)], None
         for g, dev in enumerate(leads):
             if dev not in models:
                 models[dev] = params.gathered(dev)
+            for i, part in enumerate(group_pass(models[dev], cfg, batch, g,
+                                                rows, size, denoms)):
+                parts[i].append(part.to(lead))
             named = dict(models[dev].named_parameters())
-            for p in named.values():
-                p.grad = None
-            for i in range(n_mb):
-                lo = i * size + g * rows
-                part = {k: v[lo:lo + rows] for k, v in batch.items()}
-                loss, (ce, aux) = loss_fn(models[dev], cfg, part,
-                                          denoms[i].to(dev))
-                loss.backward()              # sums into .grad, float32
-                parts[i].append(torch.stack([loss, ce, aux]).detach()
-                                .to(lead))
             grads = {n: p.grad.to(lead) for n, p in named.items()}
             for p in named.values():
                 p.grad = None
             total = grads if total is None else {
                 n: total[n] + grads[n] for n in total}
+            del grads       # not held through the next group's pass
         tot = None
         for i in range(n_mb):
             part = parts[i][0]
@@ -395,7 +499,6 @@ def _mesh_train_step(cfg, opt_cfg, compress, microbatch, param_shardings):
                 part = part + more
             tot = part if tot is None else tot + part
         if microbatch:
-            total = {n: true_div(g, n_mb) for n, g in total.items()}
             tot = true_div(tot, n_mb)
         loss, ce, aux = tot
         return loss, ce, aux, total, models[lead]
@@ -403,49 +506,21 @@ def _mesh_train_step(cfg, opt_cfg, compress, microbatch, param_shardings):
     @torch.no_grad()
     def update(params: MeshParams, grads: dict, opt: OptState, gn,
                whole: LanguageModel) -> OptState:
-        """Each coordinate's AdamW on its blocks; a leaf whose int8 moment
-        blocks do not line up with its param blocks is updated in the
-        moment's layout (from the whole params of ``whole``)."""
+        """Each coordinate's AdamW on its blocks (``coord_update``), then
+        the misaligned int8 leaves' new values written to every block."""
         mesh = params.mesh
-        ranks = convert.jax_ranks(dict(whole.named_parameters()))
         wparams = dict(whole.named_parameters())
+        ranks = convert.jax_ranks(wparams)
         new = {"m": {n: [] for n in params.tensors},
                "v": {n: [] for n in params.tensors}}
         updated = {}            # misaligned leaf -> its new whole values
         for i, (c, dev) in enumerate(zip(mesh_coords(mesh), mesh.flat)):
-            p_c, g_c, m_c, v_c = {}, {}, {}, {}
-            count, gn_c = opt.count.to(dev), gn.to(dev)
-            for n, x in params.tensors.items():
-                idx = shard_slices(x.shape, x.sharding, c)
-                m, v = opt.m[n], opt.v[n]
-                if not isinstance(m, QTensor):
-                    p_c[n], g_c[n] = x.shards[i], grads[n][idx].to(dev)
-                    m_c[n], v_c[n] = m.shards[i], v.shards[i]
-                    continue
-                region = _moment_region(x, m, c, opt_cfg.q_block)
-                shape = tuple(s.stop - s.start for s in region)
-                mq = QTensor(m.codes.shards[i], m.scales.shards[i], shape)
-                vq = QTensor(v.codes.shards[i], v.scales.shards[i], shape)
-                if region == idx:
-                    p_c[n], g_c[n] = x.shards[i], grads[n][idx].to(dev)
-                    m_c[n], v_c[n] = mq, vq
-                    continue
-                p_r = wparams[n][region].to(dev, copy=True)
-                _, st, _ = opt_lib.apply_updates(
-                    {n: p_r}, {n: grads[n][region].to(dev)},
-                    OptState({n: mq}, {n: vq}, count), opt_cfg,
-                    ranks={n: ranks[n]}, grad_norm=gn_c)
-                if n not in updated:
-                    updated[n] = torch.empty_like(wparams[n])
-                updated[n][region] = p_r.to(updated[n].device)
-                new["m"][n].append(st.m[n])
-                new["v"][n].append(st.v[n])
-            _, st, _ = opt_lib.apply_updates(
-                p_c, g_c, OptState(m_c, v_c, count), opt_cfg, ranks=ranks,
-                grad_norm=gn_c)
-            for n in p_c:
-                new["m"][n].append(st.m[n])
-                new["v"][n].append(st.v[n])
+            new_m, new_v = coord_update(params.tensors, grads, opt, gn,
+                                        wparams, ranks, opt_cfg, i, c, dev,
+                                        updated)
+            for n in params.tensors:
+                new["m"][n].append(new_m[n])
+                new["v"][n].append(new_v[n])
         for n, whole_n in updated.items():
             write(params.tensors[n], whole_n)
 
@@ -475,11 +550,12 @@ def _mesh_train_step(cfg, opt_cfg, compress, microbatch, param_shardings):
                              "param_shardings (shard_state)")
         loss, ce, aux, grads, whole = grads_of(params, batch)
         err = state.err
+        n_mb = len(batch["labels"]) // microbatch if microbatch else None
+        grads, e_new, gn = finish_grads(
+            grads, n_mb, gather_tree(err) if compress else None)
         if compress:
-            grads, e_new = _compressed(grads, gather_tree(err))
             for n, x in err.items():
                 write(x, e_new[n])
-        gn = opt_lib.global_norm(grads[n] for n in params.tensors)
         opt = update(params, grads, state.opt, gn, whole)
         metrics = {"loss": loss, "ce": ce, "aux": aux, "grad_norm": gn}
         return TrainState(params, opt, err, state.step + 1), metrics

@@ -1508,3 +1508,70 @@ def test_mesh_step_4x2_on_card(cuda_device):
     assert len(per) == 8 and len(set(per)) == 1
     assert per[0] * 8 < 3 * sum(4 * p.numel()
                                 for p in one.params.parameters()) * 2
+
+
+@pytest.mark.parametrize("opt_kw,compress,shape", [
+    ({}, False, (1, 1)), ({}, False, (4, 2)),
+    ({"state_dtype": "int8"}, True, (4, 2))],
+    ids=["fp32_1x1", "fp32_4x2", "int8_compress_4x2"])
+def test_dryrun_bytes_and_peak_on_card(cuda_device, monkeypatch, opt_kw,
+                                       compress, shape):
+    """Phase 21's checks at the reduced spadas_trajlm, 8 x 64: the meta
+    record's per-coordinate argument bytes against the resident bytes of
+    the same state placed on ``["cuda:0"] * n``, plus the batch block
+    (and the 0-d count and step on the lead); on one device the record's
+    predicted peak against one step's on the card, within phase 21's
+    bounds (10 %, or 1 MiB below 10 MiB)."""
+    import dataclasses
+    import math
+
+    from repro_torch import configs
+    from repro_torch.core import distributed
+    from repro_torch.launch import dryrun, sharding, specs
+    from repro_torch.train import optimizer, train_step
+
+    opt = optimizer.OptConfig(**opt_kw)
+    monkeypatch.setattr(specs, "_opt_cfg", lambda cfg: opt)
+    cfg = dataclasses.replace(configs.get_reduced("spadas_trajlm"),
+                              remat=False)
+    n = math.prod(shape)
+    mesh = distributed.grid_mesh(shape, ("data", "model"), ["cuda:0"] * n,
+                                 "test")
+    B, S = 8, 64
+    plan = specs.make_plan(cfg, "cell", mesh, compress=compress,
+                           shapes={"cell": ("train", B, S)})
+    rec = dryrun.record(plan, cfg, "spadas_trajlm", "cell", "test", B, S)
+    st = train_step.init_train_state(cfg, opt, device=cuda_device,
+                                     compress=compress)
+    rows = B // plan.compute["groups"]
+    batch_block = 2 * rows * S * 4
+    if n == 1:
+        held = (sum(p.numel() * p.element_size()
+                    for p in st.params.parameters())
+                + sum(x.size_bytes() if hasattr(x, "codes")
+                      else x.numel() * x.element_size()
+                      for tree in (st.opt.m, st.opt.v) for x in tree.values()))
+        want = [held + batch_block + 8]
+    else:
+        p_shard = sharding.param_shardings(
+            dict(st.params.named_parameters()), mesh)
+        placed = train_step.shard_state(st, p_shard)
+        want = [r + batch_block + (8 if i == 0 else 0) for i, r in
+                enumerate(train_step.state_device_bytes(placed))]
+    assert rec["memory"]["argument_bytes_per_coordinate"] == want
+    if n == 1:
+        rng = np.random.default_rng(0)
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                              dtype=torch.int32, device=cuda_device)
+        batch = {"tokens": tok, "labels": tok.roll(-1, 1)}
+        step = train_step.make_train_step(cfg, opt)
+        st, _ = step(st, batch)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        st, _ = step(st, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        pred = rec["memory"]["temp_bytes"]
+        print(f"predicted peak {pred} B, the card's {peak} B")
+        assert abs(peak - pred) <= max(0.10 * pred, 1 << 20), (peak, pred)

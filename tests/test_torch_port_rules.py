@@ -104,6 +104,13 @@ def test_mesh_training_modules_are_scanned():
             "src/repro_torch/launch/mesh.py"} <= names
 
 
+def test_dryrun_modules_are_scanned():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/launch/specs.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/roofline.py"} <= names
+
+
 def test_cpu_tensors_take_the_plain_path():
     ops.reset_launches()
     rng = np.random.default_rng(0)
