@@ -172,10 +172,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
  18. the LM's other kinds, each serving 8 requests of 64 inputs (256 for
      the SSM configs: one chunk) and generating 32 with the bf16 cache
      and, where the config has attention, the int8 cache: grok-1 at one
-     layer (MoE), mamba2_780m whole (Mamba-2), llama-3.2-vision at one
-     repeat of its pattern with a 1,024-token image context and its
-     cross-attention gates at 0.5 (cross-attention), musicgen_medium
-     whole (embedding inputs), all at full width with weights drawn on
+     layer (MoE), mamba2_780m at 12 of its 48 layers (Mamba-2),
+     llama-3.2-vision at one repeat of its pattern with a 1,024-token
+     image context and its cross-attention gates at 0.5
+     (cross-attention), musicgen_medium at 12 of its 48 layers
+     (embedding inputs), all at full width with weights drawn on
      the card, and jamba at its reduced config (the hybrid); per config
      prefill ms, decode ms a token, tokens per second, peak memory, the
      weight-init seconds and one profiled decode step; gates: decode
@@ -213,10 +214,15 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      the first;
  20. training on a mesh: ``launch.train.run([... "--mesh", "test"],
      devices=["cuda:0"] * 8)``, the test mesh (data 4 x model 2) of
-     ZeRO-3 storage with data-parallel compute, its eight coordinates on
-     the card, phase 19's arguments for 10 steps with a checkpoint at
-     step 10: step ms (median), peak memory, each coordinate's resident
-     bytes, one step under torch.profiler; gates: the curation launches
+     ZeRO-3 storage, each data group's pass computed over its two model
+     coordinates (attention heads, the SwiGLU d_ff, the vocabulary of the
+     tied embedding, head and CE split), its eight coordinates on the
+     card, phase 19's arguments for 10 steps with a checkpoint at step
+     10: step ms (median), peak memory, each coordinate's resident bytes,
+     one step under torch.profiler; then 3 steps on (1, 4) over
+     ``["cuda:0"] * 4`` (``--mesh 1x4``: one group over four model
+     coordinates), each loss within ``MESH_LOSS_ATOL`` of phase 19's
+     first 3; gates: the curation launches
      ``bound_grid`` and ``hausdorff_grid`` (booked as
      ``mesh_train_launches``) and the steps launch none, each loss within
      ``MESH_LOSS_ATOL`` of phase 19's (its own first 10 steps are the
@@ -231,9 +237,12 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      phase 20's (4, 2) step over ``["cuda:0"] * 8`` and phase 17's decode
      step; gates: the records' resident bytes equal the card's (phase
      20's 174,892,032 a coordinate), phase 19's FLOPs equal the smoke's
-     ``model_flops``, each predicted peak against one step's on the card
-     (``DRYRUN_TEMP_RTOL``; on (4, 2) the lead's plus one gradient
-     set), no kernel launched, the phase within
+     ``model_flops``, the (4, 2) lead's FLOPs an eighth of them (a group's
+     quarter of the batch, every piece halved over the model axis), each
+     predicted peak against one step's on the card
+     (``DRYRUN_TEMP_RTOL``; on (4, 2) the lead's plus one gradient set),
+     no kernel launched, the phase
+     within
      ``DRYRUN_BUDGET_S``; the roofline's bound (H100 terms) printed
      beside the step ms the card measured.
 
@@ -2926,17 +2935,19 @@ def lm_phase(repo, datasets, card_line):
 # ---------------------------------------------------------------------------
 
 #: (arch, the cut of its full config (None: the reduced config), prompt
-#: tokens): grok-1 at one of its 64 layers (the MoE path), mamba2 whole
-#: (the SSM path), llama-3.2-vision at one repeat of its 5-layer pattern
-#: with its 1,024-token image context (cross-attention), musicgen whole
-#: (embedding inputs), each at full width; jamba, the composition of the
+#: tokens): grok-1 at one of its 64 layers (the MoE path), mamba2 at 12
+#: of its 48 layers (the SSM path), llama-3.2-vision at one repeat of its
+#: 5-layer pattern with its 1,024-token image context (cross-attention),
+#: musicgen at 12 of its 48 layers (embedding inputs), each at full
+#: width (mamba2 and musicgen, host-bound decode loops, are cut in depth
+#: to keep the smoke in its time); jamba, the composition of the
 #: MoE and SSM paths, at its reduced config (at full width one repeat of
 #: its pattern, 63.6 GB of float32 weights, leaves too little room beside
 #: the resident repository).  SSM prompts are one 256-token chunk.
 KIND_RUNS = (("grok_1_314b", {"n_layers": 1}, 64),
-             ("mamba2_780m", {}, 256),
+             ("mamba2_780m", {"n_layers": 12}, 256),
              ("llama3_2_vision_11b", {"n_layers": 5}, 64),
-             ("musicgen_medium", {}, 64),
+             ("musicgen_medium", {"n_layers": 12}, 64),
              ("jamba_v0_1_52b", None, 256))
 #: the six families held against the port's CPU run at their reduced
 #: configs
@@ -3619,11 +3630,17 @@ def ckpt_params(step_dir: Path) -> dict:
 #: 10 steps; the reference is phase 19's own first 10 steps
 MESH_STEPS = 10
 MESH_DEVICES = ["cuda:0"] * 8
+#: the second mesh of phase 20: one data group over four model
+#: coordinates (12 heads, d_ff 3072 and 4160 tokens split in four),
+#: 3 steps against phase 19's first 3
+MESH_1X4_STEPS = 3
+MESH_1X4_DEVICES = ["cuda:0"] * 4
 #: each step's loss against phase 19's: the mesh step sums 4 groups'
-#: gradients of 2 rows where one device takes one backward over 8, so
-#: only the order of float32 sums and the bf16 products' blocking differ
-#: (predicted gap <= 5e-4; the port's CPU tests hold a mesh step to the
-#: JAX mesh step at 2e-3, the bound kept here)
+#: gradients of 2 rows where one device takes one backward over 8, and
+#: sums each group's partial products over the model axis after rounding
+#: them to bf16, so only the order of sums and the bf16 products'
+#: blocking differ (predicted gap <= 5e-4; the port's CPU tests hold a
+#: mesh step to the JAX mesh step at 2e-3, the bound kept here)
 MESH_LOSS_ATOL = 2e-3
 #: the parameters at step 10 against phase 19's step-10 checkpoint, in
 #: units of the run's lr (3e-4): at most 1 % of the elements past 0.1 lr
@@ -3758,13 +3775,44 @@ def mesh_train_phase(dev, rows, ref, card_line):
         per_name, busy_ms, wall_ms, n_ops = device_profile(one_step)
         check(not any(ops.LAUNCHES.values()), f"the train steps launched a "
               f"search kernel: {dict(ops.LAUNCHES)}")
+        check(ts.computes_on_model_axis(cfg, mesh), "the (4, 2) step does "
+              "not compute on the model axis")
         steady = np.asarray(run.step_s[TRAIN_WARM:])
         step_ms = float(np.median(steady)) * 1e3
+        step_s_all = list(run.step_s)
+        del state, run
+
+        # (1, 4): one data group over four model coordinates
+        torch.cuda.synchronize()
+        base4 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run4, run4_s = sync_time(lambda: train.run(
+            TRAIN_ARGS + ["--mesh", "1x4", "--steps", str(MESH_1X4_STEPS),
+                          "--ckpt-every", "1000", "--ckpt-dir",
+                          str(tmp / "1x4")], devices=MESH_1X4_DEVICES))
+        peak4 = torch.cuda.max_memory_allocated() - base4
+        check(run4.state.params.mesh.shape == {"data": 1, "model": 4},
+              f"the (1, 4) mesh is {run4.state.params.mesh.shape}")
+        gaps4 = np.abs(np.asarray(run4.losses)
+                       - np.asarray(ref["losses"][:MESH_1X4_STEPS]))
+        check(len(run4.losses) == MESH_1X4_STEPS
+              and gaps4.max() <= MESH_LOSS_ATOL,
+              f"(1, 4) losses {run4.losses} against one device "
+              f"{ref['losses'][:MESH_1X4_STEPS]}")
+        mesh_1x4 = {
+            "mesh": run4.state.params.mesh.shape,
+            "devices": MESH_1X4_DEVICES, "steps": MESH_1X4_STEPS,
+            "run_s": run4_s, "losses": run4.losses,
+            "loss_gaps": gaps4.tolist(), "max_loss_gap": float(gaps4.max()),
+            "step_ms": [t * 1e3 for t in run4.step_s],
+            "device_bytes": ts.state_device_bytes(run4.state),
+            "peak_above_resident_bytes": peak4}
+        del run4
         top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
         log("mesh train: " + json.dumps({
             "config": cfg.name, "mesh": mesh.shape, "devices": MESH_DEVICES,
             "batch": [8, 256], "steps": MESH_STEPS, "run_s": run_s,
-            "setup_s": run_s - float(sum(run.step_s)),
+            "setup_s": run_s - float(sum(step_s_all)),
             "losses": losses, "one_device_losses": ref["losses"][:10],
             "loss_gaps": gaps.tolist(), "max_loss_gap": float(gaps.max()),
             "loss_atol": MESH_LOSS_ATOL,
@@ -3774,7 +3822,7 @@ def mesh_train_phase(dev, rows, ref, card_line):
             "step_ms_median": step_ms,
             "step_ms_min_max": [float(steady.min()) * 1e3,
                                 float(steady.max()) * 1e3],
-            "first_steps_ms": [t * 1e3 for t in run.step_s[:TRAIN_WARM]],
+            "first_steps_ms": [t * 1e3 for t in step_s_all[:TRAIN_WARM]],
             "tokens_per_s": 8 * 256 / step_ms * 1e3,
             "device_bytes": got, "device_bytes_predicted": want_b,
             "whole_state_bytes": sum(
@@ -3788,8 +3836,7 @@ def mesh_train_phase(dev, rows, ref, card_line):
                              "idle_share_of_step": 1.0 - busy_ms / wall_ms,
                              "top_ops_ms": {k[:80]: v for k, v in top}},
             "launches": {k: v for k, v in launches.items() if v},
-            "card": card_line}))
-        del state, run
+            "mesh_1x4": mesh_1x4, "card": card_line}))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 20: {time.perf_counter() - t0:.1f} s")
@@ -3803,9 +3850,10 @@ def mesh_train_phase(dev, rows, ref, card_line):
 #: over one step above what was allocated before it, within 10 % (1 MiB
 #: below 10 MiB), the card adding its allocator's rounding and its
 #: kernels' scratch.  A one-device cell predicts its record's temp_bytes;
-#: the (4, 2) mesh over one card the lead coordinate's temp_bytes plus one
-#: whole gradient set: on one card the later groups' passes run beside
-#: the running gradient sum
+#: the (4, 2) mesh over one card the lead coordinate's temp_bytes plus
+#: one whole gradient set: on one card the later groups' passes run
+#: beside the running gradient sum, and at 2 rows a group's activations
+#: are small beside the gradient tail at the lead, which sets the peak
 DRYRUN_TEMP_RTOL = 0.10
 DRYRUN_TEMP_ATOL = 1 << 20
 DRYRUN_BUDGET_S = 20.0
@@ -3933,6 +3981,13 @@ def dryrun_phase(dev, train_ref, mesh_ref, lm_ref, card_line):
     check(per == mesh_ref["device_bytes"] == [174_892_032] * 8,
           f"dry-run bytes a coordinate {per}, phase 20's "
           f"{mesh_ref['device_bytes']}")
+    groups, m_axis = rec["compute"]["groups"], rec["compute"]["model_axis"]
+    check(rec["flops_per_device"] * groups * m_axis == train_ref["flops"]
+          and rec["flops_total"] == train_ref["flops"],
+          f"dry-run (4, 2) FLOPs: the lead's {rec['flops_per_device']}, "
+          f"the cell's {rec['flops_total']}; phase 19's count "
+          f"{train_ref['flops']} over {groups} groups x {m_axis} model "
+          f"coordinates")
     model = LanguageModel(cfg, device=dev, seed=0, init_on_device=True)
     grad_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     mesh = plan.mesh

@@ -279,6 +279,18 @@ def gather(x: Sharded, device=None, out: torch.Tensor | None = None
     return out
 
 
+def gather_block(x: Sharded, idx: tuple, out: torch.Tensor) -> torch.Tensor:
+    """The region ``idx`` (one slice per dim) of ``x`` written into
+    ``out`` (a tensor of its shape, on any device) from the distinct
+    blocks of ``x`` that lie inside it, which tile it."""
+    for i, bidx in _blocks(x):
+        if all(b.start >= r.start and b.stop <= r.stop
+               for b, r in zip(bidx, idx)):
+            out[tuple(slice(b.start - r.start, b.stop - r.start)
+                      for b, r in zip(bidx, idx))].copy_(x.shards[i])
+    return out
+
+
 def write(x: Sharded, whole: torch.Tensor) -> None:
     """Overwrite every coordinate's block of ``x`` (in place) with its
     block of ``whole``."""

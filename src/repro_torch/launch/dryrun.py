@@ -23,12 +23,17 @@ keeps the JAX field names and meanings:
     of them written into an input's storage (in place), from the same
     pass; ``generated_code_bytes`` 0: eager PyTorch compiles no program
     per cell (the CUDA kernels of the search paths are not on these
-    steps); ``work_bytes``: the whole params the lead keeps to compute on
-    (the mesh step's work model), 0 on one device;
+    steps); ``work_bytes``: the params the lead keeps to compute on
+    (the mesh step's work model: the whole params, or where the model
+    axis computes, its model blocks), 0 on one device;
   * ``flops_per_device``: ``FlopCounterMode`` over the busiest
     coordinate's work (the products: matmul, bmm, convolution), as the
-    port's code places it (``compute`` names the placement);
-    ``flops_total``: the cell's (the data groups' passes are equal);
+    port's code places it (``compute`` names the placement; where the
+    model axis computes, the lead's part, the other coordinates' results
+    arriving as stand-ins); ``flops_total``: the cell's, the busiest
+    coordinate's times the computing ones (the data groups' passes are
+    equal, and so are a group's model coordinates' where the vocabulary
+    divides the axis: an undivided head is coordinate 0's alone);
   * ``bytes_per_device``: the sum over the busiest coordinate's
     dispatched ops of their input and output tensor bytes, views
     excluded: an eager op's HBM traffic;
@@ -187,7 +192,8 @@ def record(plan, cfg, arch: str, shape_name: str, mesh_kind: str, B: int,
     colls = book(plan.moves, n)
     moved = [sum(v["moved_bytes"] for v in c.values()) for c in colls]
     lead = colls[0]
-    groups = plan.compute.get("groups", 1)
+    computing = (plan.compute.get("groups", 1)
+                 * plan.compute.get("model_axis", 1))
     return {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind,
         "tag": tag, "status": "ok",
@@ -196,7 +202,7 @@ def record(plan, cfg, arch: str, shape_name: str, mesh_kind: str, B: int,
         "model_params": int(cfg.param_count()),
         "model_params_active": int(cfg.active_param_count()),
         "flops_per_device": tr["flops"],
-        "flops_total": tr["flops"] * groups,
+        "flops_total": tr["flops"] * computing,
         "flop_counts": tr["flop_counts"],
         "bytes_per_device": tr["op_bytes"],
         "ops_traced": tr["ops"],
@@ -284,9 +290,9 @@ def parse_opts(opt: str) -> dict:
         if item == "constrain_grads":
             raise SystemExit(
                 "--opt constrain_grads has no port yet: it pins the "
-                "gradients to the params' shardings (a reduce-scatter), "
-                "and the port's mesh step sums whole gradients at the "
-                "lead (ROADMAP 14k)")
+                "gradients to the params' shardings (the gradients' "
+                "reduce-scatter), and the port's mesh step sums whole "
+                "gradients at the lead (ROADMAP 14k (b))")
         if item == "compress":
             plan_kw["compress"] = True
         elif item.startswith("microbatch="):
@@ -322,7 +328,7 @@ def main(argv=None):
     ap.add_argument("--opt", default="",
                     help="comma list of plan opts: compress,"
                          "microbatch=N,kvseq=none,expert=model,kvint8 "
-                         "(constrain_grads exits: ROADMAP 14k)")
+                         "(constrain_grads exits: ROADMAP 14k (b))")
     args = ap.parse_args(argv)
     plan_kw = parse_opts(args.opt)
 

@@ -10,6 +10,7 @@ shorter than the mesh raises; it never yields a smaller mesh.
   test        (data=4, model=2), or (pod=2, data=2, model=2)
   production  (data=16, model=16) = 256 devices, or
               (pod=2, data=16, model=16) = 512
+  grid        (data=D, model=M), any extents
 """
 from __future__ import annotations
 
@@ -35,6 +36,12 @@ def make_test_mesh(*, multi_pod: bool = False, devices=None):
     """Small mesh of 8 devices (same axis names)."""
     return _mesh(TEST_SHAPES[multi_pod], multi_pod, devices,
                  "make_test_mesh")
+
+
+def make_grid_mesh(data: int, model: int, devices=None):
+    """A (data, model) mesh of any extents, the axis names of the test
+    and production meshes."""
+    return _mesh((data, model), False, devices, "make_grid_mesh")
 
 
 def make_serving_mesh(n_replicas: int = 1, n_data: int | None = None,

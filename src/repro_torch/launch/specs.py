@@ -21,11 +21,16 @@ plan holds:
     through the port's own code:
       - train on one device: the port's one-device step;
       - train on a mesh: the mesh step's pieces at the lead
-        (``train_step``): the gather of the whole params into its work
-        model, its data group's forward and backward (``group_pass``),
-        the sum of the other groups' gradients as they arrive, the global
-        norm, the compression where on, and its AdamW on its blocks
-        (``coord_update``); the ``model`` axis holds storage only (14k);
+        (``train_step``): the gather of its work model, its data group's
+        forward and backward (``group_pass``), the sum of the other
+        groups' gradients as they arrive, the global norm, the
+        compression where on, and its AdamW on its blocks
+        (``coord_update``).  A config whose blocks are all ``attn``
+        computes on the model axis: the lead gathers its model blocks and
+        computes its part of the group's pass, the other coordinates'
+        results arriving as stand-ins (``LeadAxis``, which books the
+        moves); other configs gather the whole params at the lead, the
+        ``model`` axis storage only (14k);
       - prefill and decode: the port serves the LM on one device, so on a
         mesh the lead gathers the whole params (and caches), computes,
         and keeps its block of the caches;
@@ -47,10 +52,11 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core.distributed import (Mesh, NamedSharding, Sharded,
-                                          gather, mesh_coords,
+                                          gather, gather_block, mesh_coords,
                                           shard_slices, spec_axes)
 from repro_torch.launch import sharding as sh
 from repro_torch.models import convert, sharding_rules
+from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LanguageModel
 from repro_torch.train import optimizer as opt_lib
@@ -163,13 +169,58 @@ class LoweringPlan:
     abstract_args: dict
     in_shardings: dict
     moves: list = dataclasses.field(default_factory=list)
-    work_bytes: int = 0          # whole params the lead keeps to compute on
+    work_bytes: int = 0          # the params the lead keeps to compute on
     compute: dict = dataclasses.field(default_factory=dict)
 
 
 # ---------------------------------------------------------------------------
 # blocks and moves
 # ---------------------------------------------------------------------------
+
+
+class LeadAxis(L.ModelAxis):
+    """The model axis of the plan's busiest coordinate: coordinate 0 of
+    ``size`` computes alone (``model`` its work model).  Each collective
+    takes its one input, adds the other coordinates' as stand-ins (empty
+    tensors of its shape) and books in ``moves`` what coordinate 0
+    receives, as (JAX collective, bytes, moved bytes); the gradient's
+    collective when the backward pass reaches it.  A forward recomputed
+    in the backward pass (remat) books its moves again."""
+
+    def __init__(self, model: LanguageModel, size: int):
+        super().__init__([model])
+        self.extent = size
+        self.moves = []
+
+    @property
+    def size(self) -> int:
+        return self.extent
+
+    def _book(self, out, op: str, nbytes: int, back: str | None):
+        moved = (self.extent - 1) * nbytes
+        self.moves.append((op, _nbytes(out), moved))
+        if back is not None and out.requires_grad:
+            out.register_hook(lambda g: self.moves.append(
+                (back, _nbytes(g), moved)))
+        return [out]
+
+    def _others(self, y) -> list:
+        return [torch.empty_like(y) for _ in range(self.extent - 1)]
+
+    def all_reduce(self, ys, dtype):
+        acc = ys[0].float()
+        for o in self._others(acc):
+            acc = acc + o
+        return self._book(acc.to(dtype), "all-reduce", _nbytes(ys[0]),
+                          "all-reduce")
+
+    def all_gather(self, ys, dim=-1):
+        return self._book(torch.cat(ys + self._others(ys[0]), dim=dim),
+                          "all-gather", _nbytes(ys[0]), "reduce-scatter")
+
+    def all_max(self, ys):
+        return self._book(torch.stack(ys + self._others(ys[0])).amax(0),
+                          "all-reduce", _nbytes(ys[0]), None)
 
 
 def _split(sharding: NamedSharding | None) -> int:
@@ -197,6 +248,10 @@ def block_bytes(t: torch.Tensor, sharding: NamedSharding | None,
         out.append(math.prod(s.stop - s.start for s in idx)
                    * t.element_size())
     return out
+
+
+def _extent(idx: tuple) -> tuple:
+    return tuple(s.stop - s.start for s in idx)
 
 
 def _block(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
@@ -295,8 +350,14 @@ def _train_plan(cfg, name, mesh, B, S, rules, compress, microbatch):
                      "counted": "the whole step"})
     coords, rows = ts.data_groups(mesh, (B, S), microbatch)
     moe = any(k in ts.MOE_KINDS for k in cfg.block_pattern)
-    note = ("data groups at their leads, the model axis storage only "
-            "(ROADMAP 14k)")
+    tp = ts.computes_on_model_axis(cfg, mesh)
+    note = ("data groups over their model coordinates: attention heads, "
+            "the SwiGLU d_ff and the vocabulary of the embedding, head and "
+            "CE split over the model axis, the replicated activations and "
+            "a piece it does not divide on every coordinate (configs whose "
+            "blocks are all attn)"
+            if tp else "data groups at their leads, the model axis storage "
+            "only (ROADMAP 14k: configs with other block kinds)")
     if moe and len(coords) > 1:
         # the port's mesh step raises here (the aux loss needs whole-batch
         # means, 14k); counted as the one group it allows
@@ -325,19 +386,59 @@ def _train_plan(cfg, name, mesh, B, S, rules, compress, microbatch):
         return out
 
     opt_in = OptState(moments("opt.m"), moments("opt.v"), blocks["count"])
-    work = abstract_params(cfg)
-    work.requires_grad_(True)
-    wparams = dict(work.named_parameters())
+    all_coords = mesh_coords(mesh)
+    read_whole = ts.misaligned(tensors, opt_in.m, opt_cfg.q_block)
+    if tp:
+        M = mesh.shape[ts.MODEL_AXIS]
+        axes = {c: ts.model_coords(mesh, c) for c in coords}
+        axis0 = axes[coords[0]]                  # group 0's coordinates
+        mblock = {pn: _extent(ts.model_block(p.shape, p_shard[pn],
+                                             all_coords[0]))
+                  for pn, p in params.items()}   # equal at every coordinate
+        work = ts.blocks_model(cfg, {            # MeshParams.coord_model
+            pn: (mblock[pn], p.dtype) for pn, p in params.items()}, META)
+        wparams = {pn: _meta(p.shape, p.dtype) if pn in read_whole
+                   else tensors[pn].shards[0] for pn, p in params.items()}
+    else:
+        work = abstract_params(cfg)
+        work.requires_grad_(True)
+        wparams = dict(work.named_parameters())
     ranks = convert.jax_ranks(wparams)
+    moves = []                                   # booked below and by tp
+
+    def group_grads():
+        """Group 0's pass and its gradients, whole; with tp the lead's
+        part, the others' results stand-ins, its moves booked for every
+        coordinate (each does the same collectives)."""
+        denoms = ts.ce_divisors(batch["labels"], size, META)
+        if not tp:
+            for pn, p in wparams.items():        # MeshParams.gathered
+                gather(tensors[pn], out=p.data)
+            parts = ts.group_pass(work, cfg, batch, 0, rows, size, denoms)
+            total = {pn: p.grad for pn, p in wparams.items()}
+            for p in wparams.values():
+                p.grad = None
+            return parts, total
+        for pn, p in work.named_parameters():    # MeshParams.coord_model
+            x = tensors[pn]
+            gather_block(x, ts.model_block(x.shape, x.sharding,
+                                           all_coords[0]), p.data)
+        ax = LeadAxis(work, M)
+        parts = ts.group_pass(work, cfg, batch, 0, rows, size, denoms,
+                              tp=ax)
+        total = ts.model_axis_grads([work], tensors,
+                                    [all_coords[i] for i in axis0], META)
+        for p in work.parameters():
+            p.grad = None
+        moves[len(static):] = [(i, op, b, mv) for c in coords
+                               for i in axes[c] for op, b, mv in ax.moves]
+        return parts, total
 
     def lead_step():
-        for pn, p in wparams.items():            # MeshParams.gathered
-            gather(tensors[pn], out=p.data)
-        denoms = ts.ce_divisors(batch["labels"], size, META)
-        parts = ts.group_pass(work, cfg, batch, 0, rows, size, denoms)
-        total = {pn: p.grad for pn, p in wparams.items()}
-        for p in wparams.values():
-            p.grad = None
+        parts, total = group_grads()
+        if tp:
+            for pn in read_whole:                # read whole by AdamW
+                gather(tensors[pn], out=wparams[pn])
         for _ in range(G - 1):                   # the others' gradients
             total = {pn: g + torch.empty_like(g) for pn, g in total.items()}
         err = ({pn: _meta(params[pn].shape, torch.float32)
@@ -360,12 +461,30 @@ def _train_plan(cfg, name, mesh, B, S, rules, compress, microbatch):
         return ({pn: x.shards[0] for pn, x in tensors.items()}, new_m,
                 new_v, parts, gn)
 
-    # the bytes moved: the gather at each group lead, the gradient sum
-    # at the lead and each coordinate's block of it, the compression's
-    # error feedback, the int8 leaves updated in the moment's layout
-    moves = []
-    for c in coords:
-        moves += _gathers(c, params, p_shard, n)
+    # the bytes moved: the gather at each group lead (with tp: at each
+    # group's model coordinates, of their model blocks, and group 0's
+    # gradients at the lead, the blocks joined and the replicated
+    # leaves' copies summed), the gradient sum at the lead and each
+    # coordinate's block of it, the compression's error feedback, the
+    # int8 leaves updated in the moment's layout; with tp, the
+    # activations' moves are booked by the pass (``LeadAxis``)
+    if tp:
+        for pn, p in params.items():             # blocks equal in shape
+            want = math.prod(mblock[pn]) * p.element_size()
+            own = _nbytes(_block(p, p_shard[pn]))
+            if want > own:
+                moves += [(i, "all-gather", want, want - own)
+                          for c in coords for i in axes[c]]
+            if want < _nbytes(p):                # group 0's blocks joined
+                moves.append((0, "all-gather", _nbytes(p),
+                              _nbytes(p) - want))
+            else:                                # the copies summed
+                moves.append((0, "all-reduce", want, (M - 1) * want))
+        for pn in read_whole:
+            moves += _gathers(0, {pn: params[pn]}, p_shard, n)
+    else:
+        for c in coords:
+            moves += _gathers(c, params, p_shard, n)
     if G > 1:                                    # gradients: params' shape
         moves += [(0, "reduce-scatter", _nbytes(p), (G - 1) * _nbytes(p))
                   for p in params.values()]
@@ -389,15 +508,28 @@ def _train_plan(cfg, name, mesh, B, S, rules, compress, microbatch):
             moves.append((0, "all-gather", _nbytes(params[pn]),
                           sum(b for i, b in mis.items() if i)))
             moves += _scatters({pn: params[pn]}, p_shard, n)
+    static = list(moves)
+    compute = {"placement": note, "groups": G, "rows_per_group": rows,
+               "group_leads": coords,
+               "counted": ("one group's pass (the groups' rows are equal "
+                           "in shape), the gradient sum, the norm and "
+                           "the lead's AdamW on its blocks")}
+    if tp:
+        compute["model_axis"] = M
+        compute["counted"] = (
+            "the lead's part of one group's pass: its blocks of the split "
+            "pieces, its copy of the replicated activations and the "
+            "pieces the model axis does not divide (the other "
+            "coordinates' results arriving as stand-ins), the gradient "
+            "blocks joined and summed, the norm and its AdamW on its "
+            "blocks")
+        work_bytes = sum(math.prod(mblock[pn]) * p.element_size()
+                         for pn, p in params.items())
+    else:
+        work_bytes = sum(_nbytes(p) for p in params.values())
     return LoweringPlan(
-        name, "train", mesh, lead_step, args, shards,
-        moves=moves,
-        work_bytes=sum(_nbytes(p) for p in params.values()),
-        compute={"placement": note, "groups": G, "rows_per_group": rows,
-                 "group_leads": coords,
-                 "counted": ("one group's pass (the groups' rows are equal "
-                             "in shape), the gradient sum, the norm and "
-                             "the lead's AdamW on its blocks")})
+        name, "train", mesh, lead_step, args, shards, moves=moves,
+        work_bytes=work_bytes, compute=compute)
 
 
 def _serve_plan(cfg, name, kind, mesh, B, S, rules):
@@ -491,7 +623,7 @@ def make_plan(cfg: ModelConfig, shape_name: str, mesh: Mesh,
     counterpart: it pins the gradients to the params' shardings (a
     reduce-scatter), where the port's mesh step sums whole gradients at
     the lead and each coordinate slices its block from them (ROADMAP
-    14k)."""
+    14k (b))."""
     kind, B, S = (shapes or SHAPES)[shape_name]
     rules = arch_rules(cfg, kind)
     if rules_override:

@@ -15,7 +15,8 @@ watchdog -> async checkpointing.  ``--device`` names the device (the card
 by default; without one it raises).
 
 ``--mesh test|single|multi`` trains on the JAX package's grids
-(``launch.mesh``: (4, 2), (16, 16), (2, 16, 16)) with the state placed
+(``launch.mesh``: (4, 2), (16, 16), (2, 16, 16)), ``--mesh DxM`` on a
+(data, model) grid of any extents, with the state placed
 by its rules (``launch.sharding.param_shardings``) and the mesh step of
 ``train.train_step``.  The mesh is the visible cards, or ``devices``
 where a caller of :func:`run` lists them (``["cuda:0"] * 8`` holds the
@@ -27,6 +28,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import re
 from pathlib import Path
 from typing import NamedTuple
 
@@ -85,8 +87,9 @@ def parse_args(argv=None):
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-test reduced config")
-    ap.add_argument("--mesh", default="none",
-                    choices=["none", "test", "single", "multi"])
+    ap.add_argument("--mesh", default="none", type=_mesh_kind,
+                    help="none, test, single, multi, or DxM: a (data, "
+                         "model) grid of D x M devices")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default="results/ckpt")
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -99,6 +102,14 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def _mesh_kind(kind: str) -> str:
+    if kind in ("none", "test", "single", "multi") or re.fullmatch(
+            r"[1-9][0-9]*x[1-9][0-9]*", kind):
+        return kind
+    raise argparse.ArgumentTypeError(f"--mesh {kind!r}: none, test, single, "
+                                     f"multi or DxM")
+
+
 def make_mesh(kind: str, device=None, devices=None):
     """The ``--mesh`` grid (None for ``none``): over ``devices`` where
     given, else over as many entries of ``device`` as it needs when that
@@ -106,11 +117,15 @@ def make_mesh(kind: str, device=None, devices=None):
     if kind == "none":
         return None
     multi = kind == "multi"
+    grid = (tuple(int(v) for v in kind.split("x"))
+            if kind not in ("test", "single", "multi") else None)
     if devices is None and device is not None \
             and torch.device(device).type == "cpu":
         shapes = (mesh_lib.TEST_SHAPES if kind == "test"
                   else mesh_lib.PRODUCTION_SHAPES)
-        devices = [device] * math.prod(shapes[multi])
+        devices = [device] * math.prod(grid or shapes[multi])
+    if grid is not None:
+        return mesh_lib.make_grid_mesh(*grid, devices=devices)
     if kind == "test":
         return mesh_lib.make_test_mesh(devices=devices)
     return mesh_lib.make_production_mesh(multi_pod=multi, devices=devices)

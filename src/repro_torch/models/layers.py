@@ -11,9 +11,11 @@ of the sums differs.  Softmax statistics are float32.  Attention is
 KV-chunked with an online softmax, ``NEG_INF`` masks and
 ``acc / max(l, 1e-30)``, the flash-attention schedule of the JAX code; no
 fused-attention library is called, so the card runs the arithmetic the CPU
-tests check.  The ``shard(...)`` annotations of the JAX code are dropped:
-on one device they do nothing, and the mesh train step splits its batch
-by the spec they give (``models.sharding_rules.spec_for``).
+tests check.  The ``shard(...)`` annotations of the JAX code are not
+calls here: on one device they do nothing; the mesh train step splits its
+batch by the spec they give (``models.sharding_rules.spec_for``), and the
+tensor-parallel pieces at the end of this module compute the placement
+they give on the ``model`` axis.
 
 A layer function takes its parameters as an object with the JAX names as
 attributes (the modules of :mod:`repro_torch.models.model`).
@@ -21,6 +23,7 @@ attributes (the modules of :mod:`repro_torch.models.model`).
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -292,3 +295,207 @@ def unembed(p, x: torch.Tensor) -> torch.Tensor:
     (B, S, V), accumulated in float32."""
     table = p.table.to(x.dtype)
     return torch.einsum("bsd,vd->bsv", x.float(), table.float())
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel pieces: one data group's pass split over the model axis
+# ---------------------------------------------------------------------------
+#
+# The JAX layers' ``shard`` annotations place the column projections
+# (wq, wk, wv, wg, wu), q's heads, the SwiGLU hidden and the vocabulary
+# on ``tp`` = ``model``, and the row projections (wo, wd) with their
+# outputs summed over it.  Every other activation is replicated: each
+# model coordinate holds its own copy of the residual stream, the norms'
+# outputs and every piece the axis does not divide, and computes them
+# itself, as GSPMD places them.  So a piece takes one input per
+# coordinate and returns one output per coordinate (``ModelAxis``
+# order).  A row projection's partial products are all-reduced: each
+# coordinate sums them in float32, in coordinate order, and casts the
+# sum to the activations' dtype; column blocks that a replicated tensor
+# needs whole (k and v: the rule ``kv: None``) are all-gathered.  One
+# autograd graph spans the coordinates and the loss is read at
+# coordinate 0.  The backward of an all-reduce then sums the
+# coordinates' gradients, that of an all-gather sums each block's, and
+# each coordinate's copy of a replicated weight receives the part of its
+# gradient that flows through that coordinate: the copies' sum is the
+# weight's gradient, each path counted once.
+
+
+class ModelAxis:
+    """The model coordinates of one data group: ``models[m]`` is
+    coordinate m's work model (its blocks of the split weights, the
+    replicated ones whole), on its device.  The collectives take one
+    tensor per coordinate and return one per coordinate; coordinates on
+    one device share one result."""
+
+    def __init__(self, models: list):
+        self.models = list(models)
+        self.devices = [m.device for m in self.models]
+
+    @property
+    def size(self) -> int:
+        """The extent of the axis (the blocks a split weight has)."""
+        return len(self.models)
+
+    def _on_each(self, fn) -> list:
+        done = {}
+        for d in self.devices:
+            if d not in done:
+                done[d] = fn(d)
+        return [done[d] for d in self.devices]
+
+    def all_reduce(self, ys: list, dtype) -> list:
+        """The sum of ``ys`` at every coordinate: float32, in coordinate
+        order, cast to ``dtype``."""
+        def total(d):
+            acc = ys[0].to(d).float()
+            for y in ys[1:]:
+                acc = acc + y.to(d).float()
+            return acc.to(dtype)
+        return self._on_each(total)
+
+    def all_gather(self, ys: list, dim: int = -1) -> list:
+        """The blocks ``ys`` joined along ``dim`` at every coordinate."""
+        return self._on_each(
+            lambda d: torch.cat([y.to(d) for y in ys], dim=dim))
+
+    def all_max(self, ys: list) -> list:
+        """The elementwise max of ``ys`` at every coordinate."""
+        return self._on_each(
+            lambda d: torch.stack([y.to(d) for y in ys]).amax(0))
+
+
+def _split(w: torch.Tensor, dim: int, whole: int) -> bool:
+    return w.shape[dim] != whole
+
+
+def _kv_heads(a: int, b: int, group: int):
+    """The kv heads q heads [a, b) read under GQA (head h reads h //
+    group): a slice with a uniform group where the block covers whole
+    groups or lies in one, else one index per q head."""
+    idx = [h // group for h in range(a, b)]
+    k0, n = idx[0], idx[-1] - idx[0] + 1
+    g = (b - a) // n
+    if g * n == b - a and idx == [k0 + j // g for j in range(b - a)]:
+        return slice(k0, k0 + n)
+    return idx
+
+
+def self_attention_tp(ps: list, xs: list, cfg, positions: torch.Tensor,
+                      ax: ModelAxis) -> list:
+    """Training self attention over the model axis: ``ps[m]`` holds
+    coordinate m's column blocks of wq, wk, wv and row block of wo,
+    ``xs[m]`` its copy of the input.  k and v are whole at every
+    coordinate (the rule ``kv: None``: their column blocks all-gathered)
+    and take RoPE there.  q is split over heads where the axis divides
+    them (``("batch", "seq", "tp", None)``): each coordinate takes RoPE
+    on its block and attends with the K/V heads its heads read.  Where
+    the heads do not divide, q's blocks are all-gathered too and each
+    coordinate computes the whole attention, taking its block of the
+    output for wo's rows.  wo's partial products are all-reduced."""
+    B, S, _ = xs[0].shape
+    hd, H, KH = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    cd, M, theta = xs[0].dtype, ax.size, cfg.rope_theta
+    pos = [positions.to(x.device) for x in xs]
+    opts = dict(causal=True, q_chunk=cfg.attn_q_chunk,
+                kv_chunk=cfg.attn_kv_chunk)
+
+    def whole(name, heads):
+        """Each coordinate's (B, S, heads, hd) projection, whole."""
+        ys = [x @ getattr(p, name).to(cd) for x, p in zip(xs, ps)]
+        if _split(getattr(ps[0], name), 1, heads * hd):
+            ys = ax.all_gather(ys)
+        return [y.reshape(B, S, heads, hd) for y in ys]
+
+    by_heads = _split(ps[0].wq, 1, H * hd) and H % M == 0
+    # qkv_proj's order, so that x's gradient sums its three parts in the
+    # same order (bitwise where nothing splits)
+    q = None if by_heads else whole("wq", H)
+    k, v = whole("wk", KH), whole("wv", KH)
+    if q is not None:
+        q = [rope(t, pm, theta) for t, pm in zip(q, pos)]
+    k = [rope(t, pm, theta) for t, pm in zip(k, pos)]
+    if by_heads:                                  # q over heads
+        hb = H // M
+        ys = []
+        for m, (x, p, km, vm, pm) in enumerate(zip(xs, ps, k, v, pos)):
+            sel = _kv_heads(m * hb, (m + 1) * hb, H // KH)
+            qm = rope((x @ p.wq.to(cd)).reshape(B, S, hb, hd), pm, theta)
+            out = attention(qm, km[:, :, sel], vm[:, :, sel], **opts)
+            ys.append(out.reshape(B, S, hb * hd).to(cd) @ p.wo.to(cd))
+        return ax.all_reduce(ys, cd)
+    outs = [attention(*qkv, **opts).reshape(B, S, H * hd).to(cd)
+            for qkv in zip(q, k, v)]
+    if not _split(ps[0].wo, 0, H * hd):
+        return [o @ p.wo.to(cd) for o, p in zip(outs, ps)]
+    w = H * hd // M
+    return ax.all_reduce([o[..., m * w:(m + 1) * w] @ p.wo.to(cd)
+                          for m, (o, p) in enumerate(zip(outs, ps))], cd)
+
+
+def mlp_tp(ps: list, xs: list, d_ff: int, ax: ModelAxis) -> list:
+    """SwiGLU over the model axis: each coordinate's column blocks of wg
+    and wu, ``silu(g) * u`` on its block of ``d_ff`` and its row block of
+    wd give a partial product; the partials are all-reduced.  Where the
+    axis does not divide ``d_ff``, each coordinate's whole MLP."""
+    ys = [mlp(p, x) for p, x in zip(ps, xs)]
+    if not _split(ps[0].wg, 1, d_ff):
+        return ys
+    return ax.all_reduce(ys, xs[0].dtype)
+
+
+def embed_tp(ps: list, tokens: torch.Tensor, vocab: int, ax: ModelAxis
+             ) -> list:
+    """The lookup of a table split over the vocabulary: each coordinate
+    looks up the tokens its block holds, zeros elsewhere, and the rows
+    are all-reduced, bitwise the whole-table lookup (each token's row
+    plus zeros) at every coordinate."""
+    toks = [tokens.to(d) for d in ax.devices]
+    if not _split(ps[0].table, 0, vocab):
+        return [embed(p, t) for p, t in zip(ps, toks)]
+    vb = ps[0].table.shape[0]
+    rows = []
+    for m, (p, tok) in enumerate(zip(ps, toks)):
+        own = (tok >= m * vb) & (tok < (m + 1) * vb)
+        r = p.table[(tok - m * vb).clamp(0, vb - 1)]
+        rows.append(torch.where(own[..., None], r, r.new_zeros(())))
+    return ax.all_reduce(rows, rows[0].dtype)
+
+
+class VocabBlocks(NamedTuple):
+    """Logits split over the vocabulary: ``parts[m]`` (B, S, V / M)
+    float32 on coordinate m, its columns from m * V / M."""
+    parts: list
+    ax: ModelAxis
+
+
+def unembed_tp(ps: list, xs: list, vocab: int, ax: ModelAxis):
+    """The head over the model axis (logits ``("batch", "seq", "tp")``):
+    each coordinate's logits against its vocabulary block, as
+    :class:`VocabBlocks`.  Where the axis does not divide the vocabulary,
+    the whole logits of coordinate 0, which reads the loss."""
+    if not _split(ps[0].table, 0, vocab):
+        return unembed(ps[0], xs[0])
+    return VocabBlocks([unembed(p, x) for p, x in zip(ps, xs)], ax)
+
+
+def vocab_parallel_logp(logits: VocabBlocks,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """The float32 log-softmax at ``labels`` (B, S) from the vocabulary
+    blocks, without gathering them: the max over the blocks (detached),
+    the sum of exponentials over the blocks and the label's logit from
+    the block that owns it (a label outside every block, -1, takes 0),
+    each all-reduced.  At coordinate 0."""
+    ax, parts = logits.ax, logits.parts
+    vb = parts[0].shape[-1]
+    tops = ax.all_max([p.detach().amax(-1) for p in parts])
+    sums, takes = [], []
+    for m, (p, top) in enumerate(zip(parts, tops)):
+        lab = labels.to(p.device)
+        sums.append(torch.exp(p - top[..., None]).sum(-1))
+        own = (lab >= m * vb) & (lab < (m + 1) * vb)
+        t = torch.gather(p, -1, (lab - m * vb).clamp(0, vb - 1)[..., None])
+        takes.append(torch.where(own, t[..., 0], t.new_zeros(())))
+    total = ax.all_reduce(sums, torch.float32)[0]
+    take = ax.all_reduce(takes, torch.float32)[0]
+    return take - (tops[0] + torch.log(total))

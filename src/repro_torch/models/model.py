@@ -170,6 +170,29 @@ class Block(nn.Module):
                 x = x + L.mlp(self.mlp, h2) + y_moe
         return x, aux, new
 
+    def run_tp(self, xs: list, cfg, *, positions, peers: list,
+               ax: L.ModelAxis) -> list:
+        """An ``attn`` block in training over the model axis: ``peers[m]``
+        is this block in coordinate m's work model and ``xs[m]`` that
+        coordinate's copy of the residual stream.  Each coordinate takes
+        the norms and the residual adds on its copy; attention and the MLP
+        run as the tensor-parallel pieces of
+        :mod:`repro_torch.models.layers`."""
+        if self.kind != ATTN:
+            raise NotImplementedError(
+                f"{cfg.name}: a {self.kind!r} block does not compute on the "
+                f"model axis (ROADMAP item 14k)")
+        eps = cfg.norm_eps
+        hs = [L.rmsnorm(b.ln1, x, eps) for b, x in zip(peers, xs)]
+        ys = L.self_attention_tp([b.attn for b in peers], hs, cfg,
+                                 positions, ax)
+        xs = [x + y for x, y in zip(xs, ys)]
+        if cfg.d_ff > 0:
+            hs = [L.rmsnorm(b.ln2, x, eps) for b, x in zip(peers, xs)]
+            ys = L.mlp_tp([b.mlp for b in peers], hs, cfg.d_ff, ax)
+            xs = [x + y for x, y in zip(xs, ys)]
+        return xs
+
 
 class LanguageModel(nn.Module):
     """The decoder LM of ``cfg`` on ``device`` (the card unless the caller
@@ -254,9 +277,16 @@ class LanguageModel(nn.Module):
 
     # -- the stack --------------------------------------------------------
 
-    def _embed_in(self, inputs: torch.Tensor) -> torch.Tensor:
+    def _embed_in(self, inputs: torch.Tensor, tp=None):
         """Token ids (B, S) through the table, or embeddings (B, S, d)
-        where the config has ``embed_input=False``; bf16 either way."""
+        where the config has ``embed_input=False``; bf16 either way.  With
+        ``tp``, one copy per model coordinate, the table split over the
+        vocabulary (``layers.embed_tp``)."""
+        if tp is not None:
+            xs = (L.embed_tp([m.embed for m in tp.models], inputs,
+                             self.cfg.vocab_size, tp) if self.cfg.embed_input
+                  else [inputs.to(d) for d in tp.devices])
+            return [x.to(torch.bfloat16) for x in xs]
         inputs = inputs.to(self.device)
         if self.cfg.embed_input:
             inputs = L.embed(self.embed, inputs)
@@ -294,36 +324,62 @@ class LanguageModel(nn.Module):
                 new.append((r, i, nc))
         return x, aux, new
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = L.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
-        head = self.head if self.head is not None else self.embed
-        return L.unembed(head, x)
+    def _repeat_tp(self, r, xs, positions, tp):
+        """Repeat ``r`` of the pattern over the model axis ``tp``, ``xs``
+        the coordinates' copies of the residual stream."""
+        for i, blk in enumerate(self.blocks[r]):
+            xs = blk.run_tp(xs, self.cfg, positions=positions, ax=tp,
+                            peers=[m.blocks[r][i] for m in tp.models])
+        return xs
+
+    def _logits(self, x, tp=None):
+        key = "head" if self.head is not None else "embed"
+        eps = self.cfg.norm_eps
+        if tp is None:
+            return L.unembed(getattr(self, key),
+                             L.rmsnorm(self.final_norm, x, eps))
+        hs = [L.rmsnorm(m.final_norm, xm, eps) for m, xm in zip(tp.models, x)]
+        return L.unembed_tp([getattr(m, key) for m in tp.models], hs,
+                            self.cfg.vocab_size, tp)
 
     def _positions(self, start: int, n: int) -> torch.Tensor:
         return (start + torch.arange(n, device=self.device))[None, :]
 
     # -- public entry points ------------------------------------------------
 
-    def forward(self, inputs: torch.Tensor, ctx: torch.Tensor | None = None):
+    def forward(self, inputs: torch.Tensor, ctx: torch.Tensor | None = None,
+                tp: L.ModelAxis | None = None):
         """Teacher-forced logits (B, S, V) float32 for token ids (B, S) or
         embeddings (B, S, d), and the MoE aux loss summed over the blocks
         (float32 scalar; 0 without MoE), as the JAX ``forward``.  Records
         the autograd graph where the parameters require gradients (the
         trainer's); with ``cfg.remat`` each repeat is then recomputed in
-        the backward pass instead of keeping its activations."""
-        x = self._embed_in(inputs)
+        the backward pass instead of keeping its activations.
+
+        ``tp`` (this model its ``models[0]``) computes the pass over the
+        model axis, for a config whose blocks are all ``attn``: each model
+        coordinate its copy of the replicated activations, the embedding,
+        attention, the MLP and the head as the tensor-parallel pieces of
+        :mod:`repro_torch.models.layers`; the logits are
+        :class:`~repro_torch.models.layers.VocabBlocks` where the axis
+        splits the vocabulary, else coordinate 0's."""
+        x = self._embed_in(inputs, tp)
         ctx = self._ctx(ctx)
-        positions = self._positions(0, x.shape[1])
+        positions = self._positions(0, inputs.shape[1])
         remat = (self.cfg.remat and torch.is_grad_enabled()
                  and self.final_norm.scale.requires_grad)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for rep in self.blocks:
-            if remat:
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for r, rep in enumerate(self.blocks):
+            if tp is not None:
+                x = (checkpoint(self._repeat_tp, r, x, positions, tp,
+                                use_reentrant=False) if remat
+                     else self._repeat_tp(r, x, positions, tp))
+            elif remat:
                 x, aux = checkpoint(self._repeat, rep, x, aux, ctx,
                                     positions, use_reentrant=False)
             else:
                 x, aux = self._repeat(rep, x, aux, ctx, positions)
-        return self._logits(x), aux
+        return self._logits(x, tp), aux
 
     @torch.no_grad()
     def prefill(self, inputs: torch.Tensor, max_len: int,

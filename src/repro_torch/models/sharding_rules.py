@@ -10,9 +10,12 @@ the JAX constraints do: :func:`spec_for` is that spec, and the mesh train
 step splits its batch by ``spec_for(shape, "batch", "seq")``, the
 constraint the JAX embedding puts on its output.
 
-The ``tp``, ``kv``, ``expert``, ``seq`` and ``kvseq`` names resolve, but
-no compute uses them: the port computes on the batch axes only (tensor
-parallelism is ROADMAP item 14k).
+The ``tp`` name places compute too: the mesh train step of a config
+whose blocks are all ``attn`` splits attention heads, the SwiGLU
+``d_ff`` and the vocabulary over the axis it maps to (``model``), where
+``spec_for`` splits them (``models.layers``' ``*_tp`` pieces).  The
+``kv``, ``expert``, ``seq`` and ``kvseq`` names resolve, but no compute
+uses them (ROADMAP item 14k).
 """
 from __future__ import annotations
 

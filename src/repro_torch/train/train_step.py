@@ -19,10 +19,29 @@ for the JAX step:
     embedding's constraint, ``spec_for(shape, "batch", "seq")`` (a
     group: one coordinate of the batch axes, ``pod`` x ``data``); a batch
     that does not divide is computed once, by the first group;
-  * each group gathers the full parameters onto its lead device (its
-    coordinate with the other axes at 0; the groups on one device share
-    one gathered copy) and runs forward and backward on its rows, the
-    masked mean CE divided by the whole batch's label count;
+  * a config whose blocks are all ``attn`` (spadas_trajlm, llama3_8b,
+    yi_9b, internlm2_20b, deepseek_coder_33b, musicgen_medium) computes
+    each group's pass on the ``model`` axis as the JAX layers'
+    annotations place it (``computes_on_model_axis``): each of the
+    group's model coordinates holds its model block of each leaf,
+    gathered over the data axes (``MeshParams.coord_model``), and
+    computes its attention heads, its block of the SwiGLU ``d_ff`` and
+    its vocabulary block of the embedding, the head and the CE
+    (``models.layers``' ``*_tp`` pieces), and on its own copy the norms,
+    the residual stream and any piece the axis does not divide; the
+    partial products are all-reduced and k / v all-gathered, autograd
+    runs across the coordinates from the loss at the group's lead, and
+    the group's gradient is its blocks joined on the mesh lead, each
+    replicated leaf's copies summed (``model_axis_grads``).  Its sums over the
+    model axis are a new reduction order, so a data = 1 mesh is no
+    longer bitwise the one-device step there;
+  * any other config gathers the full parameters onto each group's lead
+    device (its coordinate with the other axes at 0; the groups on one
+    device share one gathered copy) and runs the group's forward and
+    backward there, the ``model`` axis holding storage only (ROADMAP item
+    14k);
+  * each group's CE is the masked sum over its rows divided by the whole
+    batch's label count;
   * the groups' gradients are summed in group order on the mesh's lead
     device; compression, where on, runs on that sum; the global norm is
     taken on it leaf by leaf, as on one device;
@@ -37,11 +56,10 @@ The mesh step's pieces (``data_groups``, ``group_pass``,
 ``coord_update``) are module functions, so that the dry run
 (``launch/specs.py``) runs them for the busiest coordinate alone.
 
-The ``model`` axis holds storage only: tensor-parallel compute is ROADMAP
-item 14k.  The MoE aux loss is a product of whole-batch means, so MoE
-configs raise where more than one group computes (14k too).  A data = 1
-mesh runs the one-device step's arithmetic op for op: it is bitwise
-equal to it.
+The MoE aux loss is a product of whole-batch means, so MoE configs
+raise where more than one group computes (ROADMAP item 14k).  Without
+compute on the model axis, a data = 1 mesh runs the one-device step's
+arithmetic op for op: it is bitwise equal to it.
 
 A batch is the JAX one: ``tokens`` (B, S) int, or ``embeds`` (B, S, d)
 where the config has ``embed_input=False``; ``labels`` (B, S) int, -1
@@ -54,15 +72,18 @@ import copy
 from typing import NamedTuple
 
 import torch
+from torch import nn
 
-from repro_torch.core.distributed import (Sharded, gather, gather_tree,
-                                          mesh_coords, place, place_tree,
-                                          shard_slices, spec_axes,
-                                          tree_bytes, write)
+from repro_torch.core.distributed import (NamedSharding, PartitionSpec,
+                                          Sharded, gather, gather_block,
+                                          gather_tree, mesh_coords, place,
+                                          place_tree, shard_slices,
+                                          spec_axes, tree_bytes, write)
 from repro_torch.launch.sharding import moment_sharding
 from repro_torch.models import convert, sharding_rules
-from repro_torch.models.config import (ATTN_MOE, ATTN_MOE_DENSE, MAMBA_MOE,
-                                       ModelConfig)
+from repro_torch.models import layers as L
+from repro_torch.models.config import (ATTN, ATTN_MOE, ATTN_MOE_DENSE,
+                                       MAMBA_MOE, ModelConfig)
 from repro_torch.models.model import LanguageModel
 from repro_torch.train import compression as comp
 from repro_torch.train import optimizer as opt_lib
@@ -116,22 +137,29 @@ def _on(x, dev, dtype=None) -> torch.Tensor:
 
 
 def loss_fn(model: LanguageModel, cfg: ModelConfig, batch: dict,
-            denom: torch.Tensor | None = None):
+            denom: torch.Tensor | None = None, tp: L.ModelAxis | None = None):
     """Masked mean cross-entropy of the float32 log-softmax at the labels
     (clamped into the vocabulary for the gather; -1 masked), plus
     ``AUX_LOSS_WEIGHT`` times the MoE aux loss.  Returns (loss, (ce,
     aux)).  ``denom`` (a data group's rows on a mesh) replaces the label
     count of ``batch`` as the CE's divisor: the whole batch's, clamped at
-    1."""
+    1.  ``tp`` computes the pass over the model axis
+    (``LanguageModel.forward``); logits split over the vocabulary give
+    the log-softmax at the labels from their blocks
+    (``layers.vocab_parallel_logp``)."""
     dev = model.device
     inputs = (_on(batch["tokens"], dev, torch.long) if cfg.embed_input
               else _on(batch["embeds"], dev))
     ctx = batch.get("image_embeds")
-    logits, aux = model(inputs, None if ctx is None else _on(ctx, dev))
+    logits, aux = model(inputs, None if ctx is None else _on(ctx, dev),
+                        tp=tp)
     labels = _on(batch["labels"], dev, torch.long)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    at = labels.clamp(0, logp.shape[-1] - 1)[..., None]
-    take = torch.gather(logp, -1, at)[..., 0]
+    if isinstance(logits, L.VocabBlocks):
+        take = L.vocab_parallel_logp(logits, labels)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        at = labels.clamp(0, logp.shape[-1] - 1)[..., None]
+        take = torch.gather(logp, -1, at)[..., 0]
     mask = (labels != IGNORE).float()
     if denom is None:
         denom = torch.clamp_min(mask.sum(), 1.0)
@@ -225,6 +253,73 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
 # ---------------------------------------------------------------------------
 
 MOE_KINDS = (ATTN_MOE, ATTN_MOE_DENSE, MAMBA_MOE)
+MODEL_AXIS = "model"
+
+
+def computes_on_model_axis(cfg: ModelConfig, mesh) -> bool:
+    """Whether the mesh step splits a data group's pass over the
+    ``model`` axis: a config whose blocks are all ``attn``, on a mesh
+    whose model axis is larger than 1.  Other configs compute the whole
+    model at each group's lead (ROADMAP item 14k)."""
+    return (mesh.shape.get(MODEL_AXIS, 1) > 1
+            and all(k == ATTN for k in cfg.block_pattern))
+
+
+def model_block(shape, sharding: NamedSharding, coord: dict) -> tuple:
+    """The slices of a leaf of ``shape`` that coordinate ``coord``
+    computes on: its block under ``sharding`` split over the model axis
+    alone (the data axes' blocks gathered, ZeRO-3)."""
+    spec = PartitionSpec(*(MODEL_AXIS if MODEL_AXIS in spec_axes(e)
+                           else None for e in sharding.spec))
+    return shard_slices(shape, NamedSharding(sharding.mesh, spec), coord)
+
+
+def model_coords(mesh, lead: int) -> list:
+    """The coordinate indices (``mesh.flat`` order) of the model axis
+    through coordinate ``lead``, in model order."""
+    coords = mesh_coords(mesh)
+    c0 = coords[lead]
+    on = [(c[MODEL_AXIS], i) for i, c in enumerate(coords)
+          if all(v == c0[a] for a, v in c.items() if a != MODEL_AXIS)]
+    return [i for _, i in sorted(on)]
+
+
+def blocks_model(cfg: ModelConfig, blocks: dict, device) -> LanguageModel:
+    """A work model of ``cfg`` whose parameters are empty tensors of the
+    shapes and dtypes ``blocks`` (name -> (shape, dtype)) gives, on
+    ``device``, with gradients on."""
+    model = LanguageModel(cfg, device="meta")
+    for n, (shape, dtype) in blocks.items():
+        owner, leaf = n.rsplit(".", 1)
+        setattr(model.get_submodule(owner), leaf, nn.Parameter(
+            torch.empty(shape, dtype=dtype, device=device)))
+    return model
+
+
+def model_axis_grads(models: list, tensors: dict, coords: list,
+                     device) -> dict:
+    """A data group's gradients after its pass over the model axis, whole
+    on ``device``: a split leaf's blocks (``models[m]``, at ``coords[m]``)
+    joined; a replicated leaf's copies' gradients summed in coordinate
+    order (each copy holds the part that flowed through its coordinate;
+    a copy no path reached has none).  Fewer models than coordinates (the
+    dry run's stand-in) leave the missing blocks empty."""
+    named = [dict(m.named_parameters()) for m in models]
+    out = {}
+    for n, x in tensors.items():
+        gs = [nm[n].grad for nm in named]
+        if tuple(gs[0].shape) == tuple(x.shape):
+            acc = None
+            for g in gs:
+                if g is not None:
+                    acc = g.to(device) if acc is None else acc + g.to(device)
+            out[n] = acc
+            continue
+        whole = torch.empty(x.shape, dtype=gs[0].dtype, device=device)
+        for g, c in zip(gs, coords):
+            whole[model_block(x.shape, x.sharding, c)] = g
+        out[n] = whole
+    return out
 
 
 class MeshParams:
@@ -235,7 +330,9 @@ class MeshParams:
     ``Sharded`` array placed by ``shardings``.  ``gathered(device)``
     writes the whole parameters into that device's work model: one per
     distinct device (the coordinates of ``["cuda:0"] * 8`` share one),
-    the first being the model the state was made from."""
+    the first being the model the state was made from.
+    ``coord_model(i)`` is coordinate i's work model for compute on the
+    model axis: its own, holding its model blocks."""
 
     def __init__(self, model: LanguageModel, shardings: dict):
         named = dict(model.named_parameters())
@@ -249,6 +346,8 @@ class MeshParams:
                         for n, p in named.items()}
         model.requires_grad_(True)
         self._work = {self.mesh.lead: model.to(self.mesh.lead)}
+        self._coords = mesh_coords(self.mesh)
+        self._blocks = {}           # coordinate index -> its work model
 
     def work_model(self, device) -> LanguageModel:
         """The work model on ``device`` (made by copying another)."""
@@ -257,6 +356,24 @@ class MeshParams:
             self._work[dev] = copy.deepcopy(
                 next(iter(self._work.values()))).to(dev)
         return self._work[dev]
+
+    @torch.no_grad()
+    def coord_model(self, i: int) -> LanguageModel:
+        """Coordinate ``i``'s work model holding its model block of each
+        leaf (``model_block``: gathered over the data axes from the
+        blocks of the data coordinates that share its model index; a leaf
+        the model axis does not split, whole), on its device."""
+        c = self._coords[i]
+        if i not in self._blocks:
+            self._blocks[i] = blocks_model(self.cfg, {
+                n: (tuple(s.stop - s.start for s in model_block(
+                    x.shape, x.sharding, c)), x.shards[0].dtype)
+                for n, x in self.tensors.items()}, self.mesh.flat[i])
+        model = self._blocks[i]
+        for n, p in model.named_parameters():
+            x = self.tensors[n]
+            gather_block(x, model_block(x.shape, x.sharding, c), p)
+        return model
 
     @torch.no_grad()
     def gathered(self, device) -> LanguageModel:
@@ -366,18 +483,23 @@ def _moment_region(x: Sharded, m: QTensor, coord: dict, block: int
 
 
 def group_pass(model: LanguageModel, cfg, batch: dict, g: int, rows: int,
-               size: int, denoms: list) -> list:
+               size: int, denoms: list, tp: L.ModelAxis | None = None
+               ) -> list:
     """Data group ``g``'s forward and backward on its ``rows`` rows of
     each microbatch (``size`` rows a microbatch, one CE divisor each in
-    ``denoms``), its gradients summed into the model's ``.grad``.  Returns
-    each microbatch's (loss, ce, aux), stacked, on the model's device."""
-    for p in model.parameters():
-        p.grad = None
+    ``denoms``), its gradients summed into the model's ``.grad`` (with
+    ``tp``, into each model coordinate's work model, ``model`` being
+    ``tp.models[0]``).  Returns each microbatch's (loss, ce, aux),
+    stacked, on the model's device."""
+    for m in ([model] if tp is None else tp.models):
+        for p in m.parameters():
+            p.grad = None
     out = []
     for i, denom in enumerate(denoms):
         lo = i * size + g * rows
         part = {k: v[lo:lo + rows] for k, v in batch.items()}
-        loss, (ce, aux) = loss_fn(model, cfg, part, denom.to(model.device))
+        loss, (ce, aux) = loss_fn(model, cfg, part, denom.to(model.device),
+                                  tp=tp)
         loss.backward()                      # sums into .grad
         out.append(torch.stack([loss, ce, aux]).detach())
     return out
@@ -409,6 +531,21 @@ def finish_grads(total: dict, n_mb: int | None, err: dict | None) -> tuple:
     if err is not None:
         total, e_new = _compressed(total, err)
     return total, e_new, opt_lib.global_norm(total[n] for n in order)
+
+
+def misaligned(tensors: dict, opt_m: dict, block: int) -> set:
+    """The leaves whose int8 moment blocks do not line up with their
+    param blocks at some coordinate: ``coord_update`` updates them in the
+    moment's layout, from the whole params."""
+    out = set()
+    for n, x in tensors.items():
+        m = opt_m[n]
+        if isinstance(m, QTensor) and any(
+                _moment_region(x, m, c, block)
+                != shard_slices(x.shape, x.sharding, c)
+                for c in mesh_coords(x.sharding.mesh)):
+            out.add(n)
+    return out
 
 
 @torch.no_grad()
@@ -460,10 +597,14 @@ def coord_update(tensors: dict, grads: dict, opt: OptState, gn, wparams:
 
 def _mesh_train_step(cfg, opt_cfg, compress, microbatch, param_shardings):
     moe = any(k in MOE_KINDS for k in cfg.block_pattern)
+    tp = computes_on_model_axis(
+        cfg, next(iter(param_shardings.values())).mesh)
 
-    def grads_of(params: MeshParams, batch: dict):
+    mis = []                        # the misaligned int8 leaves, once
+
+    def grads_of(params: MeshParams, batch: dict, opt_m: dict):
         """The whole batch's loss parts and summed gradients (whole, on
-        the mesh's lead device)."""
+        the mesh's lead device), and the whole params ``update`` reads."""
         mesh = params.mesh
         lead = mesh.lead
         n_rows = len(batch["labels"])
@@ -479,16 +620,28 @@ def _mesh_train_step(cfg, opt_cfg, compress, microbatch, param_shardings):
                 f"over {len(leads)}")
         denoms = ce_divisors(batch["labels"], size, lead)
         models, parts, total = {}, [[] for _ in range(n_mb)], None
+        all_coords = mesh_coords(mesh)
         for g, dev in enumerate(leads):
-            if dev not in models:
-                models[dev] = params.gathered(dev)
-            for i, part in enumerate(group_pass(models[dev], cfg, batch, g,
-                                                rows, size, denoms)):
+            if tp:                  # the group's model axis computes
+                idx = model_coords(mesh, coords[g])
+                work = [params.coord_model(i) for i in idx]
+                ax = L.ModelAxis(work)
+            else:                   # the group's lead computes it whole
+                if dev not in models:
+                    models[dev] = params.gathered(dev)
+                work, ax = [models[dev]], None
+            for i, part in enumerate(group_pass(work[0], cfg, batch, g,
+                                                rows, size, denoms, tp=ax)):
                 parts[i].append(part.to(lead))
-            named = dict(models[dev].named_parameters())
-            grads = {n: p.grad.to(lead) for n, p in named.items()}
-            for p in named.values():
-                p.grad = None
+            if tp:
+                grads = model_axis_grads(work, params.tensors,
+                                         [all_coords[i] for i in idx], lead)
+            else:
+                grads = {n: p.grad.to(lead)
+                         for n, p in work[0].named_parameters()}
+            for m in work:
+                for p in m.parameters():
+                    p.grad = None
             total = grads if total is None else {
                 n: total[n] + grads[n] for n in total}
             del grads       # not held through the next group's pass
@@ -501,15 +654,24 @@ def _mesh_train_step(cfg, opt_cfg, compress, microbatch, param_shardings):
         if microbatch:
             tot = true_div(tot, n_mb)
         loss, ce, aux = tot
-        return loss, ce, aux, total, models[lead]
+        if tp:                      # whole params only where AdamW reads them
+            if not mis:
+                mis.append(misaligned(params.tensors, opt_m,
+                                      opt_cfg.q_block))
+            wparams = {n: gather(x) if n in mis[0] else x.shards[0]
+                       for n, x in params.tensors.items()}
+        else:
+            wparams = dict(models[lead].named_parameters())
+        return loss, ce, aux, total, wparams
 
     @torch.no_grad()
     def update(params: MeshParams, grads: dict, opt: OptState, gn,
-               whole: LanguageModel) -> OptState:
+               wparams: dict) -> OptState:
         """Each coordinate's AdamW on its blocks (``coord_update``), then
-        the misaligned int8 leaves' new values written to every block."""
+        the misaligned int8 leaves' new values written to every block.
+        ``wparams``: the whole params before the update, on the lead, of
+        every leaf ``coord_update`` reads whole."""
         mesh = params.mesh
-        wparams = dict(whole.named_parameters())
         ranks = convert.jax_ranks(wparams)
         new = {"m": {n: [] for n in params.tensors},
                "v": {n: [] for n in params.tensors}}
@@ -548,7 +710,8 @@ def _mesh_train_step(cfg, opt_cfg, compress, microbatch, param_shardings):
                                         for n in params.tensors}):
             raise ValueError("the mesh step takes a state placed by its "
                              "param_shardings (shard_state)")
-        loss, ce, aux, grads, whole = grads_of(params, batch)
+        loss, ce, aux, grads, wparams = grads_of(params, batch,
+                                                 state.opt.m)
         err = state.err
         n_mb = len(batch["labels"]) // microbatch if microbatch else None
         grads, e_new, gn = finish_grads(
@@ -556,7 +719,7 @@ def _mesh_train_step(cfg, opt_cfg, compress, microbatch, param_shardings):
         if compress:
             for n, x in err.items():
                 write(x, e_new[n])
-        opt = update(params, grads, state.opt, gn, whole)
+        opt = update(params, grads, state.opt, gn, wparams)
         metrics = {"loss": loss, "ce": ce, "aux": aux, "grad_norm": gn}
         return TrainState(params, opt, err, state.step + 1), metrics
 

@@ -30,6 +30,7 @@ from repro_torch.core.build import build_repository
 from repro_torch.engine import Query, QueryEngine
 from repro_torch.kernels import _build, autotune, hausdorff
 from repro_torch.kernels.autotune import KernelConfig
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 #: source, variant macro and the config fields its columns hold

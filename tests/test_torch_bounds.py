@@ -32,6 +32,7 @@ from repro.kernels import ref as jref
 from repro_torch.core import point_search
 from repro_torch.core.build import build_query_index
 from repro_torch.kernels import ops, ref
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 BIG = np.float32(ref.BIG)
 

@@ -1423,12 +1423,42 @@ def _mesh_state(cfg, opt, mesh, compress=False, seed=0):
     return train_step.shard_state(st, p_shard), p_shard
 
 
-def _host_leaves(state):
-    from repro_torch.models import convert
+def _state_close_on_card(got: dict, want: dict):
+    """The new moments and error feedback of two card states stepped from
+    the same state, under ``test_torch_train_mesh._state_close``'s
+    bounds: m and v (dequantized where int8) with at most 0.1 % of the
+    elements past 5 % of the leaf's largest magnitude; the error feedback
+    (an int8 quantization residual) by its largest magnitude in each
+    block of 256, within 5 % for all but 10 % of the blocks."""
+    import torch.nn.functional as F
 
-    return {k: ((v.codes.cpu(), v.scales.cpu()) if hasattr(v, "codes")
-                else (v.detach().cpu(),))
-            for k, v in convert.state_leaves(state).items()}
+    from repro_torch.train import optimizer
+
+    def dense(v):
+        return (optimizer._dequantize(v) if hasattr(v, "codes")
+                else v).detach().double().cpu()
+
+    def block_max(x):
+        f = x.abs().reshape(-1)
+        return F.pad(f, (0, (-f.numel()) % 256)).reshape(-1, 256).amax(1)
+
+    over = {".m": [0, 0], ".v": [0, 0], ".err": [0, 0]}
+    for k, w in want.items():
+        if k.startswith((".opt/.m/", ".opt/.v/")):
+            a, b = dense(got[k]), dense(w)
+            gap = (a - b).abs() > 5e-2 * b.abs().max()
+            c = over[k.split("/")[1]]
+        elif k.startswith(".err/"):
+            a, b = block_max(dense(got[k])), block_max(dense(w))
+            gap = (a - b).abs() > 5e-2 * b
+            c = over[".err"]
+        else:
+            continue
+        c[0] += int(gap.sum())
+        c[1] += gap.numel()
+    for kind, (n_over, n) in over.items():
+        share = 0.1 if kind == ".err" else 1e-3
+        assert not n or n_over / n <= share, (kind, n_over / n)
 
 
 @pytest.mark.parametrize("opt_kw,compress", [
@@ -1437,39 +1467,58 @@ def _host_leaves(state):
     ids=["fp32", "int8_256_compress", "int8_64_compress"])
 def test_mesh_step_data1_is_the_one_device_step_on_card(cuda_device, opt_kw,
                                                         compress):
-    """A data = 1 mesh, (1, 2) over two entries of the card, against the
-    one-device step on the card over 3 steps: losses and every leaf
-    bitwise.  Deterministic algorithms are on for both, so the
-    embedding's backward sums its rows in one order."""
+    """A data = 1 mesh, (1, 2) over two entries of the card, computing on
+    the model axis, against the one-device step on the card, each of 3
+    steps from the same state (the mesh state's, gathered): loss and ce
+    within 2e-4 and the gradient norm within 1e-2 (relative), the params
+    after it with at most 1 % (float32 states) or 5 % (int8 states with
+    compression) of the elements past 0.1 lr, and the new moments and
+    error feedback (``_state_close_on_card``), as the CPU test
+    ``test_data1_mesh_is_the_one_device_step`` holds them; with float32
+    states the step-3 params of the two runs taken on their own keep the
+    1 % rule too."""
     from repro_torch import configs
     from repro_torch.core import distributed
+    from repro_torch.models import convert
     from repro_torch.train import optimizer, train_step
 
     cfg = configs.get_reduced("spadas_trajlm")
     opt = optimizer.OptConfig(lr=1e-3, warmup_steps=5, **opt_kw)
     mesh = distributed.grid_mesh((1, 2), ("data", "model"), ["cuda:0"] * 2,
                                  "test")
-    was = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        one = train_step.init_train_state(cfg, opt, device=cuda_device,
-                                          compress=compress)
-        ms, p_shard = _mesh_state(cfg, opt, mesh, compress)
-        s1 = train_step.make_train_step(cfg, opt, compress=compress)
-        s2 = train_step.make_train_step(cfg, opt, compress=compress,
-                                        param_shardings=p_shard)
-        for i in range(3):
-            b = _train_batch(cfg, 8, 64, seed=i)
-            one, m1 = s1(one, b)
-            ms, m2 = s2(ms, b)
-            assert all(_bits_equal(m1[k].reshape(1), m2[k].reshape(1))
-                       for k in m1)
-    finally:
-        torch.use_deterministic_algorithms(was)
-    got, want = _host_leaves(ms), _host_leaves(one)
-    assert got.keys() == want.keys()
-    for k, w in want.items():
-        assert all(torch.equal(a, b) for a, b in zip(got[k], w)), k
+    ms, p_shard = _mesh_state(cfg, opt, mesh, compress)
+    assert train_step.computes_on_model_axis(cfg, mesh)
+    s1 = train_step.make_train_step(cfg, opt, compress=compress)
+    s2 = train_step.make_train_step(cfg, opt, compress=compress,
+                                    param_shardings=p_shard)
+    share = 0.05 if opt_kw else 0.01
+
+    def params_over(a, w):
+        over = n = 0
+        for k in a:
+            if k.startswith(".params/"):
+                gap = (a[k].cpu().double() - w[k].cpu().double()).abs() / 1e-3
+                over += int((gap > 0.1).sum())
+                n += gap.numel()
+        return over / n
+
+    alone = train_step.unshard_state(ms)            # float32: its own run
+    for i in range(3):
+        b = _train_batch(cfg, 8, 64, seed=i)
+        one, m1 = s1(train_step.unshard_state(ms), b)
+        ms, m2 = s2(ms, b)
+        for k in ("loss", "ce"):
+            assert abs(float(m2[k]) / float(m1[k]) - 1) <= 2e-4, k
+        assert abs(float(m2["grad_norm"]) / float(m1["grad_norm"]) - 1) \
+            <= 1e-2
+        a, w = convert.state_leaves(ms), convert.state_leaves(one)
+        assert params_over(a, w) <= share, i
+        _state_close_on_card(a, w)
+        if not opt_kw:
+            alone, _ = s1(alone, b)
+    if not opt_kw:
+        assert params_over(convert.state_leaves(ms),
+                           convert.state_leaves(alone)) <= share
 
 
 def test_mesh_step_4x2_on_card(cuda_device):

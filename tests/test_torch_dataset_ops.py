@@ -35,6 +35,7 @@ from repro_torch import bridge
 from repro_torch.core import geometry, search
 from repro_torch.engine import Pipeline, Query, QueryEngine, batched_ops
 from test_torch_exacthaus import assert_bitwise, assert_topk_close
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 RTOL = 1e-6
 THETA = 5

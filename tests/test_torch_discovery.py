@@ -18,6 +18,7 @@ from repro.data import discovery as jdiscovery
 from repro.data import synthetic as jsynthetic
 from repro.data import tokens as jtokens
 from repro_torch.data import discovery, synthetic, tokens
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 THETA = 5

@@ -15,11 +15,21 @@ closed forms.
 * FLOPs: ``flops_per_device`` equals an op-by-op closed form of the
   port's products (the block matrices, the head, the attention's whole
   masked square forward and backward) on reduced dense cells (train on
-  (4, 2): one data group's rows; prefill and decode on one device) and on
-  the full spadas_trajlm train step at 8 x 256 with remat off.
-* Collectives on (4, 2) equal a closed form from the specs (the gather
-  at each group lead, the gradient sum at the lead and each coordinate's
-  block of it) and are 0 on a 1 x 1 mesh.
+  (4, 2): one data group's rows over the model axis, every piece halved;
+  prefill and decode on one device) and on the full spadas_trajlm train
+  step at 8 x 256 with remat off.  Against the storage-only placement
+  (the whole group's pass at its lead, the whole params in its work
+  model), computing on the model axis cuts ``flops_per_device`` and
+  ``work_bytes`` by the closed form of the split pieces, on (4, 2) and on
+  (1, 8), where the 4 heads do not divide and the attention's square
+  stays whole at the lead.
+* Collectives on (4, 2) equal a closed form from the specs (each model
+  coordinate's gather of its model blocks, group 0's gradient blocks
+  joined and its replicated leaves' copies summed at the lead, the
+  gradient sum at the lead and each coordinate's block of it) and of
+  the pass over the model axis (the partial products and the CE's
+  statistics all-reduced, k's and v's blocks all-gathered, each with its
+  gradient's collective), and are 0 on a 1 x 1 mesh.
 * ``roofline.analyze`` given the TPU v5e terms reproduces
   ``benchmarks/roofline.analyze`` on the same record.
 * The CLI: ``python -m repro_torch.launch.dryrun --arch yi_9b --shape
@@ -42,6 +52,7 @@ from repro_torch import configs
 from repro_torch.core import distributed as dist
 from repro_torch.launch import dryrun, roofline, specs
 from repro_torch.launch import sharding as sh
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 TEST_SHAPES = dryrun.test_shapes(specs.SHAPES)
@@ -157,9 +168,11 @@ def test_flops_match_closed_form_reduced(shape, yi_train):
     cfg = configs.get_reduced("yi_9b")
     kind, B, S = TEST_SHAPES[shape]
     if kind == "train":                  # (4, 2): four groups of 2 rows
-        rec = yi_train
+        rec = yi_train                   # over the model axis: halves
         assert rec["compute"]["groups"] == 4
-        assert rec["flops_per_device"] == dense_flops(cfg, kind, B // 4, S)
+        assert rec["compute"]["model_axis"] == 2
+        assert rec["flops_per_device"] == dense_flops(cfg, kind, B // 4,
+                                                      S) // 2
         assert rec["flops_total"] == dense_flops(cfg, kind, B, S)
     else:                                # one device
         rec = dryrun.record(_plan("yi_9b", shape, _mesh((1, 1))), cfg,
@@ -190,35 +203,108 @@ def test_phase19_cell_flops():
     assert parts["opt"] == 8 * cfg.param_count()
 
 
+def _model_split(n: str, p, M: int) -> int:
+    """Into how many blocks the model axis cuts a reduced dense leaf:
+    the rules' ``model`` dim (columns of wq/wk/wv/wg/wu, rows of wo/wd,
+    the tables' vocabulary), where it divides."""
+    dim = {"wq": 1, "wk": 1, "wv": 1, "wg": 1, "wu": 1, "wo": 0, "wd": 0,
+           "table": 0}.get(n.rsplit(".", 1)[-1])
+    return M if dim is not None and p.shape[dim] % M == 0 else 1
+
+
+@pytest.mark.parametrize("shape", [(4, 2), (1, 8)])
+def test_tp_cuts_flops_and_work_bytes(shape, request):
+    """The reduced yi_9b train cell computing on the model axis against
+    the storage-only placement's closed forms: the lead's FLOPs are the
+    group's with each split piece's products over M, the attention's
+    square whole where the heads do not divide M; its work model holds
+    each split leaf's model block (whole over the data axes)."""
+    cfg = configs.get_reduced("yi_9b")
+    D, M = shape
+    if shape == (4, 2):                  # the module's record
+        _, B, S = TEST_SHAPES["train_4k"]
+        rec = request.getfixturevalue("yi_train")
+    else:                                # the closed form holds at any S
+        B, S = 8, 128
+        plan = specs.make_plan(cfg, "cell", _mesh(shape),
+                               shapes={"cell": ("train", B, S)})
+        rec = dryrun.record(plan, cfg, "yi_9b", "cell", "single", B, S)
+    rows = B // D
+    hd, L, H = cfg.resolved_head_dim, cfg.n_layers, cfg.n_heads
+    whole = dense_flops(cfg, "train", rows, S)          # storage-only
+    sq = 12 * L * rows * H * hd * _padded(S, cfg.attn_q_chunk) * _padded(
+        S, cfg.attn_kv_chunk)                           # the square
+    split_sq = H % M == 0
+    assert rec["flops_per_device"] == (
+        (whole - sq) // M + (sq // M if split_sq else sq))
+    assert rec["flops_total"] == rec["flops_per_device"] * D * M
+    assert (rec["flops_total"] == whole * D) == split_sq
+    params = dict(specs.abstract_params(cfg).named_parameters())
+    full = sum(p.numel() * 4 for p in params.values())  # storage-only
+    assert rec["memory"]["work_bytes"] == sum(
+        p.numel() * 4 // _model_split(n, p, M) for n, p in params.items())
+    assert rec["memory"]["work_bytes"] < full
+    assert split_sq == (shape == (4, 2))
+    assert all(_model_split(n, p, M) == M for n, p in params.items()
+               if p.ndim == 2)              # every matrix splits
+
+
 # ---------------------------------------------------------------------------
 # collectives against a closed form
 # ---------------------------------------------------------------------------
 
 
 def test_collectives_closed_form(yi_train):
+    """(4, 2): four data groups of 2 rows, each over its 2 model
+    coordinates (0, 1), (2, 3), ...; bytes moved by coordinate."""
     arch, mesh, rec = "yi_9b", _mesh(), yi_train
     _, B, S = TEST_SHAPES["train_4k"]
-    params = dict(specs.abstract_params(configs.get_reduced(arch))
-                  .named_parameters())
+    cfg = configs.get_reduced(arch)
+    params = dict(specs.abstract_params(cfg).named_parameters())
     shard = sh.param_shardings(params, mesh)
-    G, leads = 4, [0, 2, 4, 6]
+    G, M = 4, 2
     want = [0.0] * 8
-    gathered = reduced = 0
+    ops = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
     for n, p in params.items():
         W = p.numel() * p.element_size()
         split = math.prod(mesh.shape[a] for e in shard[n].spec
                           for a in dist.spec_axes(e))
+        msplit = _model_split(n, p, M)
         for c in range(8):
-            if c in leads and split > 1:          # MeshParams.gathered
-                want[c] += W - W // split
+            if W // msplit > W // split:          # its model block, ZeRO-3
+                want[c] += W // msplit - W // split
             want[c] += (G - 1) * W if c == 0 else W // split   # grad sum
-        gathered += W if split > 1 else 0
-        reduced += W
+        if W // msplit > W // split:
+            ops["all-gather"] += W // msplit
+        if msplit > 1:                            # group 0's blocks joined
+            want[0] += W - W // msplit
+            ops["all-gather"] += W
+        else:                                     # a replicated leaf's copies
+            want[0] += (M - 1) * W
+            ops["all-reduce"] += W
+        ops["reduce-scatter"] += W
+    # the pass over the model axis, the same at every coordinate: the
+    # embedding's rows, each layer's attention and MLP partials and the
+    # CE's max, sums and label logits all-reduced (each but the max with
+    # its gradient's all-reduce), k's and v's column blocks all-gathered
+    # (their gradients reduce-scattered); each coordinate receives the
+    # other's part of each
+    assert not cfg.remat
+    rows, d, L = B // G, cfg.d_model, cfg.n_layers
+    X = rows * S * d * 2                          # bf16 activations
+    KV = rows * S * cfg.n_kv_heads * cfg.resolved_head_dim * 2 // M
+    E, st = rows * S * d * 4, rows * S * 4
+    reduced = 2 * E + L * 4 * X + 5 * st
+    for c in range(8):
+        want[c] += (M - 1) * (reduced + L * 4 * KV)
+    ops["all-reduce"] += reduced
+    ops["all-gather"] += L * 2 * M * KV
+    ops["reduce-scatter"] += L * 2 * M * KV
     assert rec["collective_moved_bytes_per_coordinate"] == want
     assert rec["collective_moved_bytes_total"] == want[0]
-    assert rec["collectives"]["all-gather"]["bytes"] == gathered
-    assert rec["collectives"]["reduce-scatter"]["bytes"] == reduced
-    assert rec["collective_bytes_total"] == gathered + reduced > 0
+    for op, b in ops.items():
+        assert rec["collectives"][op]["bytes"] == b, op
+    assert rec["collective_bytes_total"] == sum(ops.values()) > 0
 
     one = dryrun.record(_plan(arch, "train_4k", _mesh((1, 1))),
                         configs.get_reduced(arch), arch, "train_4k",
@@ -285,3 +371,10 @@ def test_failed_cell_is_an_error(tmp_path, monkeypatch):
     rec = json.loads((tmp_path / "yi_9b__decode_32k__single.json")
                      .read_text())
     assert rec["status"] == "error" and "planted" in rec["error"]
+
+
+def test_constrain_grads_exits_naming_the_reduce_scatter():
+    """The JAX ``--opt constrain_grads`` has no port: the CLI exits and
+    names the gradients' reduce-scatter, the part of ROADMAP 14k left."""
+    with pytest.raises(SystemExit, match="reduce-scatter.*14k \\(b\\)"):
+        dryrun.parse_opts("compress,constrain_grads")

@@ -22,6 +22,7 @@ from repro.core.build import build_repository as jbuild
 from repro_torch import bridge
 from repro_torch.core import emd, zorder
 from test_torch_exacthaus import assert_bitwise, assert_topk_close
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 RTOL = 1e-4
 

@@ -22,6 +22,7 @@ from repro_torch.core.build import build_repository
 from repro_torch.data import synthetic
 from repro_torch.engine import Pipeline, Query, QueryEngine
 from test_torch_exacthaus import assert_bitwise, assert_topk_close
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 K = 5
 

@@ -24,6 +24,7 @@ from repro_torch import bridge
 from repro_torch.core import search
 from repro_torch.engine import Query, QueryEngine
 from repro_torch.kernels.ref import BIG
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 RTOL = 1e-6
 K = 6

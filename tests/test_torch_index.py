@@ -9,6 +9,8 @@ order differs between XLA and PyTorch, so they are held to ``rtol=1e-6``
 bound is meaningless for a sum of terms of either sign).  No outlier
 drop test (``sqrt(d2) > r'``) flipped on these seeds: ``valid`` is equal.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,7 @@ from repro_torch import bridge
 from repro_torch.core import outliers
 from repro_torch.core.build import build_query_index, build_repository
 from repro_torch.data import synthetic
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 EXACT_DS = ("points", "valid", "counts", "box_lo", "box_hi")
 CLOSE_DS = ("centers", "radii")
@@ -45,12 +48,18 @@ def _datasets(kind):
     return synthetic.trajectory_repository(24, seed=1, n_points=(50, 400))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_repository(kind, remove):
+    """The JAX package's build of ``_datasets(kind)``, once a module."""
+    return jbuild(_datasets(kind), leaf_capacity=16, theta=5,
+                  remove_outliers=remove)
+
+
 @pytest.mark.parametrize("kind", ["clustered", "poi", "trajectory"])
 @pytest.mark.parametrize("remove", [False, True])
 def test_repository_build_parity(kind, remove):
     ds = _datasets(kind)
-    jrepo, jinfo = jbuild(ds, leaf_capacity=16, theta=5,
-                          remove_outliers=remove)
+    jrepo, jinfo = _jax_repository(kind, remove)
     trepo, tinfo = build_repository(ds, leaf_capacity=16, theta=5,
                                     remove_outliers=remove, device="cpu")
     got = bridge.to_numpy(trepo)
@@ -78,8 +87,10 @@ def test_repository_build_parity(kind, remove):
 
 
 def test_bridge_round_trip():
-    ds = make_clustered_datasets(9, seed=4, n_points=(20, 90))
-    jrepo, _ = jbuild(ds, leaf_capacity=16, theta=5)
+    """The JAX repository of the clustered parity case, through
+    ``bridge.repository_to_torch`` and back: every leaf bitwise, its
+    dtype kept."""
+    jrepo, _ = _jax_repository("clustered", False)
     want = jax.tree.map(np.asarray, jrepo)
     trepo = bridge.repository_to_torch(want, device="cpu")
     assert trepo.ds_sigs.dtype == torch.int64

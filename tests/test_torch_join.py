@@ -28,6 +28,7 @@ from repro_torch.core import join_search
 from repro_torch.engine import Pipeline, Query, QueryEngine
 from repro_torch.engine import plan as plan_lib
 from repro_torch.engine.query import OPS
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 THETA = 5
 K = 6

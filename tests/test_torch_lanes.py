@@ -24,6 +24,7 @@ from repro_torch.core import search
 from repro_torch.core.index import DatasetIndex
 from repro_torch.kernels import hausdorff, ops
 from repro_torch.kernels.ref import BIG
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 RTOL = 1e-6
 

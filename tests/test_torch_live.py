@@ -33,6 +33,7 @@ from repro_torch.core import repo_mutate
 from repro_torch.core.distributed import DATA_AXIS, Mesh
 from repro_torch.engine import LiveRepository, Query, QueryEngine
 from repro_torch.engine.sharded import shard_repository
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 N_INIT = 6
 LEAF = 8

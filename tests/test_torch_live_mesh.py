@@ -52,6 +52,7 @@ from test_torch_live import (_assert_repo_like_jax, _run_concurrent_prepare,
                              _run_interleaving, assert_repo_bitwise,
                              assert_shards_match)
 from test_torch_sharded import assert_results_bitwise
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 LEAF = 8
 RTOL = 1e-6

@@ -28,6 +28,7 @@ from repro_torch.core import distributed
 from repro_torch.core.distributed import Mesh
 from repro_torch.engine import merge
 from repro_torch.kernels import ops, ref
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 
 def _tied_scores(seed, rows=6, n=48):

@@ -32,6 +32,7 @@ from repro_torch.core.build import build_query_index
 from repro_torch.core.index import DatasetIndex
 from repro_torch.kernels import ops
 from test_torch_exacthaus import assert_bitwise
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 RTOL = 1e-6
 THETA = 5

@@ -37,6 +37,7 @@ from repro.kernels import ref as jref
 from repro_torch import bridge
 from repro_torch.core import point_search
 from repro_torch.kernels import ops, ref
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 RTOL = 1e-6
 BIG = np.float32(ref.BIG)

@@ -39,6 +39,7 @@ from repro_torch.core import point_search
 from repro_torch.core.build import build_repository
 from repro_torch.engine import Pipeline, Query, QueryEngine, batched_ops
 from test_torch_exacthaus import assert_bitwise
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 RTOL = 1e-6
 

@@ -28,6 +28,7 @@ from repro_torch.engine import LiveRepository, QueryEngine
 from repro_torch.kernels import (_build, bound_matrix, hausdorff,
                                  nn_distance, ops, set_intersect)
 from repro_torch.launch import serve_search
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 quickstart_main = runpy.run_path(

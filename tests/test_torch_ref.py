@@ -28,6 +28,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 RTOL = 1e-6
 

@@ -24,6 +24,7 @@ from repro_torch.engine import (Pipeline, Query, QueryEngine,
 from repro_torch.launch.mesh import make_serving_mesh
 from test_torch_sharded import (assert_results_bitwise, every_op_batch,
                                 make_env)
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 GRIDS = [(2, 2), (4, 1), (1, 4), (3, 1)]
 

@@ -32,6 +32,7 @@ from repro_torch.launch.serve_search import (OPS, Mutation, Request,
                                              SearchServer, _legacy_result,
                                              _to_query, make_traffic)
 from test_torch_live import LEAF, POINT_CAP, _mixed_specs, _mk_dataset
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 THETA = 5
 K = 4

@@ -31,6 +31,7 @@ from repro_torch.core.build import build_repository
 from repro_torch.engine import (Pipeline, Query, QueryEngine,
                                 ShardedQueryEngine, data_mesh)
 from repro_torch.engine.sharded import repo_device_bytes
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 THETA = 5
 K = 6

@@ -40,6 +40,7 @@ from repro_torch.models.model import LanguageModel
 from repro_torch.train import compression as comp
 from repro_torch.train import optimizer as topt
 from repro_torch.train import train_step as tts
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 RULE_SETS = [{}, {"expert": "model"}, {"no_fsdp": True}]
 #: spec_for's rule sets: the three above, and sequence / cache-time axes

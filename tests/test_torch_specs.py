@@ -47,6 +47,7 @@ from repro_torch.train import optimizer as topt
 from repro_torch.train import train_step as tts
 from torch_train_parity import (DEFAULT_STEP_BOUNDS, GNORM_RTOL, LOSS_ATOL,
                                 LR, batch, cfg_pair, jax_step, opt_pair)
+from torch_lm_parity import one_torch_thread  # noqa: F401
 
 MESH_SHAPES = {"test": {"data": 4, "model": 2},
                "test_multi": {"pod": 2, "data": 2, "model": 2},
